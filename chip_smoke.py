@@ -5,12 +5,30 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``, holds each
-kernel against its plain-torch twin on the inputs of the real main path
-(the enclosed atrium, ~218k triangles, 65,536-ray batches), checks the
-chunk cascade against the dense sweep and the Cornell render against the
-committed golden, then renders the atrium at 512x512 @ 16 spp through the
-port's CLI entry point and checks that both kernels ran on that path.
+It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc`` (one
+``nvcc`` per source, in parallel) and holds each kernel against its
+plain-torch twin on the inputs of the real paths, 65,536-ray batches:
+
+  b1, b2, cascade  the enclosed atrium (~218k triangles): activity and item
+                   kernels, and the cascade against the dense sweep;
+  b4               the first-entered-group kernel on the atrium's groups;
+  b3               the light-pdf kernel on the lit-banner atrium (the
+                   atrium with its green banners emissive: ~24,600 lights
+                   in 193 clusters).
+
+Then it renders, each at 512x512 @ 16 spp with the launch counters set to 0
+just before and read just after:
+
+  main             the atrium through the CLI (``cli.main``), sort key "hint";
+  lights_main      the lit-banner atrium through the CLI (kernel B3);
+  env_main         the textured sphere field (~82k triangles) with a
+                   Radiance HDR environment map and the camera light
+                   triangle, through ``cli.render_scene_file``;
+  sort_keys        the atrium through ``render`` under the "target" (kernel
+                   B4), "cell" and "dirhint" keys;
+
+and checks the Cornell goldens (plain, environment map PNG and HDR, light
+triangle) at 64x64 @ 64 spp.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero without the final line.  The last two lines before the final one
@@ -76,16 +94,38 @@ def phase_device():
 def phase_build():
     from tpu_pathtracer_torch import kernels
 
+    t0 = time.perf_counter()
     info = kernels.build()
-    with open(os.path.join(kernels.BUILD_DIR, "nvcc.log")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling entry" in ln]
-    kernels.library()
-    emit("build", built=info["built"], nvcc_seconds=round(info["seconds"], 3), ptxas=ptxas)
+    wall = time.perf_counter() - t0
+    for name, lib in info.items():
+        with open(os.path.join(kernels.BUILD_DIR, f"nvcc_{name}.log")) as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling entry" in ln]
+        kernels.library(name)
+        emit("build", library=name, built=lib["built"], nvcc_seconds=round(lib["seconds"], 3),
+             ptxas=ptxas)
+    emit("build", libraries=len(info), wall_seconds=round(wall, 3))
 
 
-def make_inputs(tmp):
-    """The atrium scene on the card, its first 65,536 primary rays and one
-    bounce of their sorted, compacted secondaries."""
+def counters():
+    """Kernel name -> the wrapper that counts its launches."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
+            "b4": ci.nearest_box_ids}
+
+
+def reset_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def make_inputs(tmp, lit_banners=False):
+    """The atrium (or the lit-banner atrium) on the card, its first 65,536
+    primary rays and one bounce of their sorted, compacted secondaries."""
     import dataclasses
 
     from tpu_pathtracer_torch.models import pathtracer as pt
@@ -98,18 +138,20 @@ def make_inputs(tmp):
     except ImportError:
         textured = False
     t0 = time.perf_counter()
-    path = fixtures.make_atrium_gltf(os.path.join(tmp, "atrium.gltf"), detail=2,
-                                     textured=textured)
+    make = fixtures.make_lit_banner_atrium_gltf if lit_banners else fixtures.make_atrium_gltf
+    name = "lit_atrium" if lit_banners else "atrium"
+    path = make(os.path.join(tmp, name, "atrium.gltf"), detail=2, textured=textured)
     t_gen = time.perf_counter() - t0
     config = pt.RenderConfig()
     t0 = time.perf_counter()
     scene = gltf.parse_gltf_scene(path, W / H, config)
     t_parse = time.perf_counter() - t0
     scene = dataclasses.replace(scene, camera=scene.camera.with_dims(W, H)).to(DEV)
-    emit("inputs", pil=textured, native_packer=gltf.native.load_library() is not None,
+    emit("inputs", scene=name, pil=textured,
+         native_packer=gltf.native.load_library() is not None,
          triangles=int(scene.valid.sum()), chunks=scene.chunk_woop.shape[0],
-         lights=scene.lights.count, gen_seconds=round(t_gen, 3),
-         parse_seconds=round(t_parse, 3))
+         lights=scene.lights.count, light_clusters=scene.lights.cluster_woop.shape[0],
+         gen_seconds=round(t_gen, 3), parse_seconds=round(t_parse, 3))
     n = N_RAYS
     pids = torch.arange(n, dtype=torch.int32, device=DEV)
     o, d = pt.gen_rays(scene.camera, pids, jitter_uniforms(0, 0, pids))
@@ -118,7 +160,7 @@ def make_inputs(tmp):
     o2, d2, _, _, alive2, hint = pt.bounce_step(
         scene, config, o, d, torch.ones_like(o), torch.zeros_like(o), alive, draws
     )
-    key = pt._make_sort_key(scene, config)(o2, d2, alive2, hint)
+    key = pt._make_sort_key(scene, config, n)(o2, d2, alive2, hint)
     perm = torch.argsort(key, stable=True)
     o2, d2, alive2 = o2[perm], d2[perm], alive2[perm]
     o2 = torch.where(alive2[:, None], o2, torch.full_like(o2, 1e30))
@@ -340,14 +382,17 @@ def phase_golden(tmp):
         raise AssertionError("Cornell golden failed")
 
 
-def phase_main(path, gen_seconds, tmp):
-    """The atrium at 512x512 @ 16 spp through the CLI entry point, with the
-    kernel launch counters reset just before and read just after."""
+def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None):
+    """One 512x512 @ 16 spp render with every launch counter set to 0 just
+    before and read just after: through the CLI entry point (``cli.main``,
+    default config) when ``config`` is None, else through
+    ``cli.render_scene_file`` with ``config``.  Fails unless each kernel in
+    ``needs`` launched, the HDR frame is finite and the PPM has the right
+    shape.  Returns the printed fields."""
     import numpy as np
 
     from tpu_pathtracer_torch import cli
-    from tpu_pathtracer_torch.ops import chunk_intersect as ci
-    from tpu_pathtracer_torch.utils.image import read_ppm
+    from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm, write_ppm
 
     captured = {}
     render = cli.render
@@ -356,55 +401,228 @@ def phase_main(path, gen_seconds, tmp):
         captured["hdr"] = render(*a, **kw)
         return captured["hdr"]
 
-    out = os.path.join(tmp, "atrium.ppm")
+    out = os.path.join(tmp, phase + ".ppm")
     err = io.StringIO()
     cli.render = tap
-    ci.tile_chunk_activity.launches = 0
-    ci.run_items.launches = 0
+    reset_launches()
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
-            rc = cli.main(["tpu_pathtracer_torch", path, str(W), str(H), str(SPP), out])
+            if config is None:
+                rc = cli.main(["tpu_pathtracer_torch", path, str(W), str(H), str(SPP), out])
+                metrics = err.getvalue().strip().splitlines()[-1]
+            else:
+                rc = 0
+                hdr, m = cli.render_scene_file(path, W, H, SPP, torch.device(DEV), config)
+                write_ppm(out, quantize_u8(torch.from_numpy(hdr)).numpy())
+                metrics = m.to_json()
         total = time.perf_counter() - t0
     finally:
         cli.render = render
-    b1, b2 = ci.tile_chunk_activity.launches, ci.run_items.launches
+    launches = read_launches()
     if rc != 0:
         raise AssertionError(f"CLI failed (rc {rc}): {err.getvalue()[-2000:]}")
-    metrics = json.loads(err.getvalue().strip().splitlines()[-1])
+    metrics = json.loads(metrics)
     hdr = captured["hdr"]
     img = read_ppm(out)
     load, rend = metrics["load_seconds"], metrics["render_seconds"]
-    emit("main", scene="atrium 512x512@16spp", seconds_scene_generation=gen_seconds,
-         seconds_load=load, seconds_render=rend,
-         seconds_write=round(total - load - rend, 4), seconds_total=round(total, 4),
-         pixel_samples_per_s=W * H * SPP / rend, measured_rays=metrics["measured_rays"],
-         measured_mrays_per_s=metrics["measured_rays"] / rend / 1e6,
-         launches_b1=b1, launches_b2=b2, ppm_shape=list(img.shape),
-         hdr_finite=bool(np.isfinite(hdr).all()), u8_mean=float(img.mean()))
-    if b1 == 0 or b2 == 0:
-        raise AssertionError(f"main path did not launch both kernels: B1 {b1}, B2 {b2}")
+    row = dict(scene=label, seconds_scene_generation=gen_seconds,
+               seconds_load=load, seconds_render=rend,
+               seconds_write=round(total - load - rend, 4), seconds_total=round(total, 4),
+               pixel_samples_per_s=W * H * SPP / rend, measured_rays=metrics["measured_rays"],
+               measured_mrays_per_s=metrics["measured_rays"] / rend / 1e6,
+               **{f"launches_{k}": v for k, v in launches.items()}, ppm_shape=list(img.shape),
+               hdr_finite=bool(np.isfinite(hdr).all()), u8_mean=float(img.mean()))
+    emit(phase, **row)
+    missing = [k for k in needs if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels {missing} never launched ({launches})")
     if img.shape != (H, W, 3) or not np.isfinite(hdr).all() or not img.mean() > 0:
-        raise AssertionError("atrium render output is wrong")
-    return b1, b2
+        raise AssertionError(f"{phase}: render output is wrong")
+    return row
+
+
+def phase_b4(scene, rays_sets):
+    """B4 kernel vs its twin on the atrium's worklist-group boxes: ids
+    exactly equal, entry distances equal, and no padding group returned.
+    Returns (max abs error of the entry t, timing args)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    g_lo, g_hi = ci.group_boxes(scene.chunk_aabb_min, scene.chunk_aabb_max)
+    g = g_lo.shape[0]
+    gpad = -(-g // ci.ACT_COLS) * ci.ACT_COLS
+    bmin = ci._nan_pad(g_lo, gpad).contiguous()
+    bmax = ci._nan_pad(g_hi, gpad).contiguous()
+    nan_box = torch.isnan(bmin[:, 0])
+    worst, timing = 0.0, None
+    for name, (o, d) in rays_sets.items():
+        args = (ci.pack_rays(o, d), bmin, bmax, EPS)
+        tk, ik = kernels.nearest(*args)
+        tp, ip = ci.nearest_box_ids_plain(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(tp)
+        err = float((tk[fin] - tp[fin]).abs().max()) if fin.any() else 0.0
+        worst = max(worst, err)
+        hit = ik >= 0
+        bad_pad = int(nan_box[ik[hit].long()].sum()) + int((ik >= g).sum())
+        emit("b4", rays=name, groups=g, padded_groups=gpad, entered=int(hit.sum()),
+             id_mismatch=int((ik != ip).sum()), t_mismatch=int((tk[fin] != tp[fin]).sum()),
+             finite_mismatch=int((torch.isfinite(tk) != fin).sum()), padding_returned=bad_pad,
+             distinct_ids=int(torch.unique(ik).numel()), max_abs_err=err)
+        if not torch.equal(ik, ip) or not torch.equal(torch.isfinite(tk), fin) or err or bad_pad:
+            raise AssertionError(f"B4 kernel disagrees with its twin ({name})")
+        if name == "secondary":
+            timing = args
+    return worst, timing
+
+
+def light_worklists(scene, o, d):
+    """The inputs B3 gets inside ``light_pdf_sum_chunks`` on these rays:
+    the packed rays and each tile's worklist of pierced light clusters."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    lights = scene.lights
+    rays = ci.pack_rays(o, d)
+    m8, ent, _ = ci.tile_chunk_activity(rays, lights.cluster_min.contiguous(),
+                                        lights.cluster_max.contiguous(), None, None, EPS,
+                                        ci.RAY_TILE)
+    ga, ge = ci._group_stats(m8 != 0, ent, 1)
+    idx, counts, _ = ci._worklist(ga, ge, lights.cluster_woop.shape[0])
+    return (rays, lights.cluster_woop.contiguous(), lights.cluster_k.contiguous(),
+            idx.contiguous(), counts.contiguous(), EPS)
+
+
+def phase_b3(scene, rays_sets):
+    """B3 kernel vs its twin on the lit-banner atrium's real worklists: the
+    zero / non-zero pattern equal (the Woop test rounds op for op alike),
+    relative error <= 1e-5 on the non-zero sums (all terms are >= 0 and only
+    the order of the sum differs), and the kernel bit-equal across two runs
+    (no atomics).  Returns (max abs error, timing args)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    worst, timing = 0.0, None
+    for name, (o, d) in rays_sets.items():
+        args = light_worklists(scene, o, d)
+        k1 = kernels.light_pdf(*args)
+        k2 = kernels.light_pdf(*args)
+        p = ci.run_light_pdf_plain(*args)
+        torch.cuda.synchronize()
+        nz = p != 0
+        pattern = int(((k1 != 0) != nz).sum())
+        rel = float(((k1[nz] - p[nz]).abs() / p[nz]).max()) if nz.any() else 0.0
+        err = float((k1 - p).abs().max())
+        worst = max(worst, err)
+        counts = args[4]
+        emit("b3", rays=name, clusters=args[1].shape[0], items=int(counts.sum()),
+             max_tile_items=int(counts.max()), nonzero=int(nz.sum()),
+             pattern_mismatch=pattern, max_rel_err=rel, max_abs_err=err,
+             deterministic=bool(torch.equal(k1, k2)))
+        if pattern or rel > 1e-5 or not torch.equal(k1, k2) or int(nz.sum()) == 0:
+            raise AssertionError(f"B3 kernel disagrees with its twin ({name})")
+        if name == "secondary":
+            timing = args
+    return worst, timing
+
+
+def phase_goldens_env_lt(tmp):
+    """Cornell 64x64 @ 64 spp with the environment map (PNG, Radiance HDR)
+    and with the camera light triangle, against the reference's 4096-spp
+    goldens: rmse < 14, |mean difference| < 3 (u8)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.models.pathtracer import RenderConfig, render
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+    from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
+
+    d = os.path.join(tmp, "goldens")
+    p = fixtures.make_cornell_gltf(os.path.join(d, "cornell.gltf"))
+    cases = {
+        "cornell_env": RenderConfig(use_env_map=True, env_map_path=fixtures.make_env_image(
+            os.path.join(d, "env.png"))),
+        "cornell_envhdr": RenderConfig(use_env_map=True, env_map_path=fixtures.make_env_hdr(
+            os.path.join(d, "env.hdr"))),
+        "cornell_lt": RenderConfig(add_light_triangle=True),
+    }
+    for name, config in cases.items():
+        scene = parse_gltf_scene(p, 1.0, config)
+        scene = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 64)).to(DEV)
+        t0 = time.perf_counter()
+        img = render(scene, spp=64, seed=0, config=config)
+        secs = time.perf_counter() - t0
+        ours = quantize_u8(torch.from_numpy(img)).numpy().astype(np.float64)
+        ref = read_ppm(os.path.join(ROOT, "tests", "golden", f"{name}_64x64_4096spp.ppm"))
+        ref = ref.astype(np.float64)
+        rmse = float(np.sqrt(((ours - ref) ** 2).mean()))
+        dmean = float(abs(ours.mean() - ref.mean()))
+        emit("goldens_env_lt", golden=name, rmse=rmse, abs_mean_diff=dmean,
+             seconds=round(secs, 3))
+        if not (rmse < 14.0 and dmean < 3.0):
+            raise AssertionError(f"{name} golden failed")
+
+
+def phase_sort_keys(path, hint):
+    """The atrium at 512x512 @ 16 spp through ``render`` under the "target",
+    "cell" and "dirhint" sort keys (each counter set to 0 just before and
+    read just after); "target" must launch B4.  Printed beside the "hint"
+    run of the main phase."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.models.pathtracer import RenderConfig, render
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    scene = parse_gltf_scene(path, W / H)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(W, H)).to(DEV)
+    emit("sort_keys", sort_key="hint", **{k: v for k, v in hint.items() if k in (
+        "seconds_render", "measured_rays", "pixel_samples_per_s", "measured_mrays_per_s")},
+        **{k: v for k, v in hint.items() if k.startswith("launches_")})
+    out = {}
+    for key in ("target", "cell", "dirhint"):
+        stats = {}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene, spp=SPP, seed=0, config=RenderConfig(sort_key=key), stats=stats)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        emit("sort_keys", sort_key=key, seconds_render=secs, measured_rays=stats["measured_rays"],
+             pixel_samples_per_s=W * H * SPP / secs,
+             measured_mrays_per_s=stats["measured_rays"] / secs / 1e6,
+             **{f"launches_{k}": v for k, v in launches.items()},
+             hdr_finite=bool(np.isfinite(img).all()), mean=float(img.mean()))
+        needs = ("b1", "b2", "b4") if key == "target" else ("b1", "b2")
+        if any(launches[k] == 0 for k in needs) or not np.isfinite(img).all():
+            raise AssertionError(f"sort key {key}: {launches}, finite {np.isfinite(img).all()}")
+        out[key] = launches
+    return out
 
 
 def main():
     phase_device()
     phase_build()
     from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.models.pathtracer import RenderConfig
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
+    from tpu_pathtracer_torch.scene import fixtures
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path, textured, gen_seconds, scene, rays_sets = make_inputs(tmp)
         if not textured:
-            print("PIL is not installed: the atrium is rendered untextured", flush=True)
+            print("PIL is not installed: the atriums are rendered untextured", flush=True)
         b1_err = phase_b1(scene, rays_sets)
         b2_err, b2_args = phase_b2(scene, rays_sets)
         phase_cascade(scene, rays_sets)
+        b4_err, b4_args = phase_b4(scene, rays_sets)
 
-        # Kernel vs twin time at the main path's shapes: the initial gated
-        # activity pass and the residual item pass on sorted secondaries.
+        # Kernel vs twin time at the main paths' shapes: the initial gated
+        # activity pass, the residual item pass and the first-entered-group
+        # search on sorted atrium secondaries.
         o, d = rays_sets["secondary"]
         rays = ci.pack_rays(o, d)
         cmin, cmax = scene.chunk_aabb_min, scene.chunk_aabb_max
@@ -415,23 +633,56 @@ def main():
                    sync_ms(lambda: ci.tile_chunk_activity_plain(*b1_args), 5)),
             "b2": (sync_ms(lambda: kernels.items(*b2_args), 20),
                    sync_ms(lambda: ci.run_items_plain(*b2_args), 3)),
+            "b4": (sync_ms(lambda: kernels.nearest(*b4_args), 20),
+                   sync_ms(lambda: ci.nearest_box_ids_plain(*b4_args), 5)),
         }
-        emit("timing", b1_ms=times["b1"][0], b1_plain_ms=times["b1"][1],
-             b2_ms=times["b2"][0], b2_plain_ms=times["b2"][1])
-        del scene, rays_sets
+        del scene, rays_sets, rays, cbits, b1_args, b2_args, b4_args
+        torch.cuda.empty_cache()
+
+        # The lit-banner atrium: B3 on the light pdf of its real bounces.
+        lit_path, _, lit_gen, scene, rays_sets = make_inputs(tmp, lit_banners=True)
+        if scene.lights.cluster_woop.shape[0] <= 4 or scene.lights.capacity <= 512:
+            raise AssertionError("the lit-banner atrium must need the cluster pdf")
+        b3_err, b3_args = phase_b3(scene, rays_sets)
+        times["b3"] = (sync_ms(lambda: kernels.light_pdf(*b3_args), 20),
+                       sync_ms(lambda: ci.run_light_pdf_plain(*b3_args), 3))
+        emit("timing", **{f"{k}_ms": v[0] for k, v in times.items()},
+             **{f"{k}_plain_ms": v[1] for k, v in times.items()})
+        del scene, rays_sets, b3_args
         torch.cuda.empty_cache()
 
         phase_golden(tmp)
-        b1_n, b2_n = phase_main(path, gen_seconds, tmp)
+        phase_goldens_env_lt(tmp)
+        main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2"),
+                                gen_seconds=gen_seconds)
+        lit_row = phase_render("lights_main", "lit-banner atrium 512x512@16spp", lit_path, tmp,
+                               ("b1", "b2", "b3"), gen_seconds=lit_gen)
+        t0 = time.perf_counter()
+        field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
+                                                n_spheres=64, subdiv=3, textured=textured)
+        env = fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr"))
+        field_gen = time.perf_counter() - t0
+        phase_render("env_main", "sphere field + HDR env map + light triangle 512x512@16spp",
+                     field, tmp, ("b1", "b2"), gen_seconds=field_gen,
+                     config=RenderConfig(use_env_map=True, env_map_path=env,
+                                         add_light_triangle=True))
+        sort_rows = phase_sort_keys(path, main_row)
 
-    src = "tpu_pathtracer_torch/csrc/chunk_kernels.cu"
+    launches = {"b1": main_row["launches_b1"], "b2": main_row["launches_b2"],
+                "b3": lit_row["launches_b3"], "b4": sort_rows["target"]["b4"]}
+    errs = {"b1": b1_err, "b2": b2_err, "b3": b3_err, "b4": b4_err}
+    table = [
+        ("activity (B1)", "chunk_kernels.cu", "b1", 146),
+        ("items (B2)", "chunk_kernels.cu", "b2", 819),
+        ("light pdf (B3)", "light_sort_kernels.cu", "b3", 1493),
+        ("nearest box (B4)", "light_sort_kernels.cu", "b4", 1673),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "activity (B1)", "route": "cuda", "source": src,
-         "replaces": "tpu_pathtracer/ops/pallas_intersect.py:146", "launches": b1_n,
-         "max_abs_err": b1_err, "ms": times["b1"][0], "plain_ms": times["b1"][1]},
-        {"name": "items (B2)", "route": "cuda", "source": src,
-         "replaces": "tpu_pathtracer/ops/pallas_intersect.py:819", "launches": b2_n,
-         "max_abs_err": b2_err, "ms": times["b2"][0], "plain_ms": times["b2"][1]},
+        {"name": name, "route": "cuda", "source": f"tpu_pathtracer_torch/csrc/{src}",
+         "replaces": f"tpu_pathtracer/ops/pallas_intersect.py:{line}",
+         "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
+         "plain_ms": times[k][1]}
+        for name, src, k, line in table
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

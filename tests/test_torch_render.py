@@ -131,11 +131,11 @@ def test_torch_cli_device_and_slice(tmp_path, capsys, monkeypatch):
         {"compaction": False},
         {"jitter": "sobol"},
         {"lowdisc": "sobol"},
-        {"sort_key": "cell"},
+        {"tuning": IntersectTuning(mode="twopass")},
         {"tuning": IntersectTuning(mode="dense")},
         {"tuning": IntersectTuning(cheap_recheck=1)},
     ],
-    ids=["scan_engine", "sobol_jitter", "lowdisc", "sort_cell", "mode_dense", "cheap_recheck"],
+    ids=["scan_engine", "sobol_jitter", "lowdisc", "mode_twopass", "mode_dense", "cheap_recheck"],
 )
 def test_torch_render_rejects_unported_config(tmp_path, change):
     path = make_cornell_gltf(str(tmp_path / "c.gltf"))

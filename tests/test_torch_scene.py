@@ -11,6 +11,8 @@ from tpu_pathtracer.config import RenderConfig
 from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
 from tpu_pathtracer.utils.testscenes import (
     make_cornell_gltf,
+    make_env_hdr,
+    make_env_image,
     make_sphere_field_gltf,
     make_textured_cornell_gltf,
 )
@@ -108,8 +110,31 @@ def test_torch_bridge_round_trip(tmp_path):
         assert back[key].dtype == mine[key].dtype, key
 
 
-@pytest.mark.parametrize("field", ["use_env_map", "add_light_triangle"])
+@pytest.mark.parametrize(
+    "field", ["use_env_map", "use_env_map_hdr", "add_light_triangle", "env_map_and_light_triangle"]
+)
 def test_torch_loader_rejects_unported_options(tmp_path, field):
-    path = make_cornell_gltf(str(tmp_path / "c.gltf"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_parse(path, 1.0, dataclasses.replace(RenderConfig(), **{field: True}))
+    """The loader's lighting options: the environment map (PNG, or Radiance
+    HDR through the package's codec) added to the atlas, and the extra
+    camera-space light triangle, load bit-equal to the JAX loader, array by
+    array."""
+    change = {}
+    if field != "add_light_triangle":
+        png = field != "use_env_map_hdr"
+        make = make_env_image if png else make_env_hdr
+        change = {"use_env_map": True,
+                  "env_map_path": make(str(tmp_path / ("env.png" if png else "env.hdr")))}
+    if field in ("add_light_triangle", "env_map_and_light_triangle"):
+        change["add_light_triangle"] = True
+    config = dataclasses.replace(RenderConfig(), **change)
+    path = make_cornell_gltf(str(tmp_path / "c" / "c.gltf"))
+    js, ts = jax_parse(path, 1.0, config), torch_parse(path, 1.0, config)
+    want, statics = jax_scene_arrays(js)
+    got = scene_arrays(ts)
+    assert set(got) <= set(want), set(got) - set(want)
+    for key, arr in got.items():
+        assert arr.dtype == want[key].dtype and arr.shape == want[key].shape, key
+        np.testing.assert_array_equal(arr, want[key], err_msg=key)
+    assert ts.has_env == statics["has_env"] == config.use_env_map
+    assert ts.env_tex == int(want["env_tex"]) and ts.tex_slots == statics["tex_slots"]
+    assert ts.lights.count == 2 + config.add_light_triangle

@@ -22,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from tpu_pathtracer.config import DEFAULT_CONFIG
+from tpu_pathtracer.config import DEFAULT_CONFIG, RenderConfig
 from tpu_pathtracer.utils.metrics import RenderMetrics
 
 from .models.pathtracer import render
@@ -68,9 +68,10 @@ def render_scene_file(
     height: int,
     samples: int,
     device: torch.device,
+    config: RenderConfig = DEFAULT_CONFIG,
 ):
-    """Load + render a glTF scene file with the default configuration and
-    seed 0 -> (HDR numpy image, RenderMetrics)."""
+    """Load + render a glTF scene file with seed 0 -> (HDR numpy image,
+    RenderMetrics)."""
     if not (scene_path.endswith(".gltf") or scene_path.endswith(".glb")):
         if not os.path.exists(scene_path):
             raise FileNotFoundError(2, "No such file or directory", scene_path)
@@ -80,14 +81,14 @@ def render_scene_file(
         )
     image_shape_or_raise(width, height)
     t0 = time.perf_counter()
-    scene = parse_gltf_scene(scene_path, width / height, DEFAULT_CONFIG)
+    scene = parse_gltf_scene(scene_path, width / height, config)
     scene = dataclasses.replace(
         scene, camera=scene.camera.with_dims(width, height), samples=samples
     ).to(device)
     t_load = time.perf_counter() - t0
     t1 = time.perf_counter()
     run_stats: dict = {}
-    hdr = render(scene, spp=samples, seed=0, config=DEFAULT_CONFIG, progress=True,
+    hdr = render(scene, spp=samples, seed=0, config=config, progress=True,
                  stats=run_stats)
     t_render = time.perf_counter() - t1
     metrics = RenderMetrics(

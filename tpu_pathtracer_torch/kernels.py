@@ -1,10 +1,11 @@
-"""Build and bind the hand-written CUDA kernels (``csrc/chunk_kernels.cu``).
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source is compiled by ``nvcc`` into ``build/tpu_pathtracer_torch/
-libchunk_kernels.so`` at the repository root on first use, and rebuilt when
-the hash of the source and flags changes; it is loaded with ``ctypes`` and
-every launch goes to PyTorch's current stream.  Nothing here runs at import
-time, so the module imports on machines without CUDA.
+Each source is compiled by its own ``nvcc`` process, all started together,
+into ``build/tpu_pathtracer_torch/lib<name>.so`` at the repository root on
+first use, and rebuilt when the hash of its source and the flags changes;
+the libraries are loaded with ``ctypes`` and every launch goes to PyTorch's
+current stream.  Nothing here runs at import time, so the module imports on
+machines without CUDA.
 
 The functions below check device, dtype, shape and contiguity, allocate the
 outputs, launch, and raise when the launch reports a CUDA error.  The
@@ -24,7 +25,7 @@ import time
 
 import torch
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "chunk_kernels.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "tpu_pathtracer_torch"
 )
@@ -32,6 +33,18 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+# Library name -> its C entry points (ctypes argument types).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARIES = {
+    "chunk_kernels": {
+        "tpt_activity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+        "tpt_items": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    },
+    "light_sort_kernels": {
+        "tpt_light_pdf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+        "tpt_nearest": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -42,44 +55,63 @@ def _nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile the kernel library unless an up-to-date build exists.
-    Returns {"path", "built", "seconds"}; the compiler's output (register and
-    shared-memory use per kernel) is kept in ``nvcc.log`` beside it."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(BUILD_DIR, "libchunk_kernels.so")
-    stamp = so + ".sha256"
-    if os.path.exists(so) and os.path.exists(stamp):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                return {"path": so, "built": False, "seconds": 0.0}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC], capture_output=True, text=True
-    )
-    seconds = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    with open(stamp, "w") as f:
-        f.write(digest)
-    return {"path": so, "built": True, "seconds": seconds}
+    """Compile every kernel library that has no up-to-date build, one
+    ``nvcc`` per source, all running at once.  Returns {name: {"path",
+    "built", "seconds"}}; each compiler's output (register and shared-memory
+    use per kernel) is kept in ``nvcc_<name>.log`` beside the library."""
+    out, procs = {}, {}
+    for name in LIBRARIES:
+        src = os.path.join(_CSRC, name + ".cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        so = os.path.join(BUILD_DIR, f"lib{name}.so")
+        stamp = so + ".sha256"
+        if os.path.exists(so) and os.path.exists(stamp):
+            with open(stamp) as f:
+                if f.read().strip() == digest:
+                    out[name] = {"path": so, "built": False, "seconds": 0.0}
+                    continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        procs[name] = (proc, time.perf_counter(), so, tmp, stamp, digest)
+    failed = []
+    for name, (proc, t0, so, tmp, stamp, digest) in procs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, f"nvcc_{name}.log"), "w") as f:
+            f.write(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{stderr[-4000:]}")
+            continue
+        os.replace(tmp, so)
+        with open(stamp, "w") as f:
+            f.write(digest)
+        out[name] = {"path": so, "built": True, "seconds": seconds}
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
-    lib = ctypes.CDLL(build()["path"])
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpt_activity.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p, p, p, p]
-    lib.tpt_activity.restype = i
-    lib.tpt_items.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p, p, p]
-    lib.tpt_items.restype = i
-    return lib
+def _libraries() -> dict:
+    libs = {}
+    for name, info in build().items():
+        lib = ctypes.CDLL(info["path"])
+        for fn, argtypes in LIBRARIES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        libs[name] = lib
+    return libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (every library is built first if
+    needed)."""
+    return _libraries()[name]
 
 
 def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -121,7 +153,7 @@ def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, wan
     ent = torch.empty((t_tiles, c), dtype=torch.float32, device=dev)
     sub = torch.empty((t_tiles, n_sub, c), dtype=torch.float32, device=dev) if want_sub else None
     with torch.cuda.device(dev):
-        rc = library().tpt_activity(
+        rc = library("chunk_kernels").tpt_activity(
             _ptr(rays), _ptr(cmin), _ptr(cmax), _ptr(tbest), _ptr(coarse_bits),
             nwords, r, c, ray_tile, n_sub, float(min_dst), _ptr(m8), _ptr(ent),
             _ptr(sub), torch.cuda.current_stream(dev).cuda_stream,
@@ -153,7 +185,7 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = library().tpt_items(
+        rc = library("chunk_kernels").tpt_items(
             _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(chunk_woop), _ptr(idx),
             _ptr(counts), _ptr(masks), r, t_tiles, cap, n_words, group, n_sub, cw,
             float(min_dst), _ptr(t_out), _ptr(tri_out),
@@ -161,3 +193,48 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
         )
     _raise_on(rc, "items")
     return t_out, tri_out
+
+
+def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
+    """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``)."""
+    dev = rays.device
+    r = rays.shape[0]
+    t_tiles, cap = idx.shape
+    c, _, cw = cluster_woop.shape
+    ray_tile = r // t_tiles if t_tiles else 0
+    if t_tiles == 0 or r % t_tiles or ray_tile % 128 or c == 0:
+        raise ValueError(f"light_pdf: R={r} T={t_tiles} clusters={c}")
+    _check(rays, "rays", torch.float32, (r, 8), dev)
+    _check(cluster_woop, "cluster_woop", torch.float32, (c, 12, cw), dev)
+    _check(cluster_k, "cluster_k", torch.float32, (c, cw), dev)
+    _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
+    _check(counts, "counts", torch.int32, (t_tiles,), dev)
+    out = torch.empty((r,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("light_sort_kernels").tpt_light_pdf(
+            _ptr(rays), _ptr(cluster_woop), _ptr(cluster_k), _ptr(idx), _ptr(counts),
+            r, cap, cw, ray_tile, float(min_dst), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "light_pdf")
+    return out
+
+
+def nearest(rays, box_min, box_max, min_dst):
+    """Launch B4 (contract: ``ops.chunk_intersect.nearest_box_ids_plain``)."""
+    dev = rays.device
+    r, g = rays.shape[0], box_min.shape[0]
+    if r == 0 or g == 0:
+        raise ValueError(f"nearest: R={r} boxes={g}")
+    _check(rays, "rays", torch.float32, (r, 8), dev)
+    _check(box_min, "box_min", torch.float32, (g, 3), dev)
+    _check(box_max, "box_max", torch.float32, (g, 3), dev)
+    t_out = torch.empty((r,), dtype=torch.float32, device=dev)
+    id_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("light_sort_kernels").tpt_nearest(
+            _ptr(rays), _ptr(box_min), _ptr(box_max), r, g, float(min_dst),
+            _ptr(t_out), _ptr(id_out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "nearest")
+    return t_out, id_out

@@ -11,8 +11,8 @@ depth) stream, so the estimator is the JAX package's draw for draw; only
 per-pixel summation order (and the intersector's fp rounding) differ.
 
 The loop runs eagerly: one host read per iteration decides whether work
-remains.  Configurations outside this slice raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+remains.  Configurations outside the port so far raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,7 +25,17 @@ import torch
 from tpu_pathtracer.config import IntersectTuning, RenderConfig
 
 from ..ops import bsdf, sampling, texture
-from ..ops.chunk_intersect import RAY_TILE, closest_hit_chunks, ray_sort_key_hint
+from ..ops.chunk_intersect import (
+    RAY_TILE,
+    closest_hit_chunks,
+    group_boxes,
+    light_pdf_sum_chunks,
+    ray_sort_key,
+    ray_sort_key_dirhint,
+    ray_sort_key_hint,
+    ray_sort_key_target,
+    scene_bounds,
+)
 from ..ops.intersect import Hit, closest_hit, light_pdf_sum, light_pdf_sum_flat
 from ..ops.rng import jitter_uniforms, lane_uniforms
 from ..ops.vecmath import cross, dot, frame_apply, length2, normalize, where3
@@ -36,9 +46,17 @@ from ..scene.types import Camera, TriangleScene
 # 7 light pick | 8,9 light point
 _DRAWS = 10
 
+_SORT_KEYS = ("hint", "dirhint", "cell", "target", "none")
+
+
+def _check_sort_key(key: str) -> None:
+    if key not in _SORT_KEYS:
+        raise ValueError(f"unknown sort_key {key!r}: expected " + " | ".join(_SORT_KEYS))
+
 
 def check_config(config: RenderConfig) -> None:
-    """Raise for configurations this slice does not run (never ignore one)."""
+    """Raise for configurations the port does not run yet (never ignore
+    one) and for unknown values."""
     if not config.compaction:
         raise NotImplementedError(
             "compaction=False (the scan engine) is not ported (ROADMAP: next "
@@ -49,18 +67,7 @@ def check_config(config: RenderConfig) -> None:
             "Sobol jitter / lowdisc are not ported (ROADMAP: next slices, engine "
             "and config parity)"
         )
-    if config.sort_key not in ("hint", "none"):
-        if config.sort_key in ("dirhint", "cell", "target"):
-            raise NotImplementedError(
-                f"sort_key {config.sort_key!r} is not ported (ROADMAP: next slices, "
-                "engine and config parity; 'target' also needs kernel B4)"
-            )
-        raise ValueError(f"unknown sort_key {config.sort_key!r}: expected hint | none")
-    if config.use_env_map or config.add_light_triangle:
-        raise NotImplementedError(
-            "environment maps and add_light_triangle are not ported (ROADMAP: "
-            "next slices, env maps and the light triangle)"
-        )
+    _check_sort_key(config.sort_key)
     tuning = config.tuning.resolve()
     if tuning.mode not in ("items", "twopass", "dense", "bins"):
         raise ValueError(f"unknown intersect mode {tuning.mode!r}")
@@ -187,10 +194,14 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     lights = scene.lights
     hit = scene_closest_hit(scene, o, d, eps, config.tuning)
 
-    # No env map in this slice: bg_at degenerates to bg_color.
+    if scene.has_env and config.use_textures:
+        env = texture.env_radiance(scene.atlas, scene.env_tex, scene.bg_color, d)
+    else:
+        # No env map loaded: bg_at degenerates to bg_color.
+        env = scene.bg_color
     miss = alive & ~hit.hit
     zero3 = torch.zeros_like(radiance)
-    radiance = radiance + torch.where(miss[:, None], throughput * scene.bg_color, zero3)
+    radiance = radiance + torch.where(miss[:, None], throughput * env, zero3)
 
     live = alive & hit.hit
     info = hit_info(scene, d, hit, config)
@@ -220,14 +231,19 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     # pdf blend (src/raytracer.h:572-574)
     p_vndf = sampling.vndf_pdf(alpha_r2, d, info["shading_normal"], new_dir, eps)
     p_cos = sampling.cosine_pdf(info["normal"], new_dir)
-    if lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
+    # The same choice as the JAX package makes on its chip, on every device:
+    # the cluster worklists (kernel B3) past 512 light slots, the flat
+    # contraction for up to 4 clusters, the dense reduce otherwise.
+    if lights.has_clusters and lights.capacity > 512:
+        r = pos.shape[0]
+        tile = RAY_TILE if r % RAY_TILE == 0 else 256
+        p_light = light_pdf_sum_chunks(
+            pos, new_dir, lights.cluster_woop, lights.cluster_k, lights.cluster_min,
+            lights.cluster_max, n_lights, eps, ray_tile=tile,
+        )
+    elif lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
         p_light = light_pdf_sum_flat(
             pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps
-        )
-    elif pos.is_cuda:
-        raise NotImplementedError(
-            f"{lights.capacity} light slots: light sets of more than 512 lights "
-            "need the cluster kernel B3 on CUDA (ROADMAP: next slices, many lights)"
         )
     else:
         p_light = light_pdf_sum(
@@ -255,9 +271,35 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     return o, d, throughput, radiance, moved, hint
 
 
-def _make_sort_key(scene: TriangleScene, config: RenderConfig):
-    """Per-bounce wavefront coherence key (dead rays sort last)."""
+def _make_sort_key(scene: TriangleScene, config: RenderConfig, r: int):
+    """Per-bounce wavefront coherence key fn(o, d, alive, hint) -> [r] int32
+    (dead rays sort last), by ``config.sort_key``:
+
+      "hint"    direction octant x spawn-surface chunk id;
+      "dirhint" fine direction bins x spawn-surface chunk id x octant;
+      "cell"    direction octant x Morton origin cell;
+      "target"  the worklist group each ray will first enter (kernel B4)
+                x octant, on the lanes padded to a multiple of ``RAY_TILE``;
+      "none"    compaction only (live order untouched)."""
+    _check_sort_key(config.sort_key)
     n_chunks = scene.chunk_woop.shape[0]
+    if config.sort_key == "target":
+        g_lo, g_hi = group_boxes(scene.chunk_aabb_min, scene.chunk_aabb_max)
+        pad = (-r) % RAY_TILE
+
+        def key_fn(o, d, alive, hint):
+            if pad:
+                o = torch.cat([o, torch.full((pad, 3), 1e30, device=o.device)])
+                d = torch.cat([d, torch.ones((pad, 3), device=d.device)])
+                alive = torch.cat([alive, torch.zeros(pad, dtype=torch.bool, device=alive.device)])
+            return ray_sort_key_target(o, d, alive, g_lo, g_hi, config.eps)[:r]
+
+        return key_fn
+    if config.sort_key == "cell":
+        lo, hi = scene_bounds(scene.chunk_aabb_min, scene.chunk_aabb_max)
+        return lambda o, d, alive, hint: ray_sort_key(o, d, alive, lo, hi)
+    if config.sort_key == "dirhint":
+        return lambda o, d, alive, hint: ray_sort_key_dirhint(d, alive, hint, n_chunks)
     if config.sort_key == "hint":
         return lambda o, d, alive, hint: ray_sort_key_hint(d, alive, hint, n_chunks)
     return lambda o, d, alive, hint: (~alive).to(torch.int32)  # "none"
@@ -287,7 +329,7 @@ def persistent_accum(
     pool_pix = n_rays if pix_count is None else pix_count
     rows = n_rays if accum_rows is None else accum_rows
     sort_rays = scene.capacity > 1024 and n_rays >= 2048
-    key_fn = _make_sort_key(scene, config) if sort_rays else None
+    key_fn = _make_sort_key(scene, config, n_rays) if sort_rays else None
     far = torch.full((3,), 1e30, device=dev)
 
     def spawn(work_ids, valid):
@@ -390,11 +432,6 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     the number of rays traced (live lanes entering each bounce)."""
     config = config or RenderConfig()
     check_config(config)
-    if scene.has_env:
-        raise NotImplementedError(
-            "environment maps are not ported (ROADMAP: next slices, env maps "
-            "and the light triangle)"
-        )
     h, w = scene.camera.height, scene.camera.width
     npix = h * w
     if scene.ray_depth == 0:

@@ -22,15 +22,24 @@ Every pass min-accumulates (t, triangle) with a strict ``<`` from the
 previous pass's result, so retests are idempotent and the result is exactly
 the closest hit over the union of tested chunks.
 
-The two kernels are hand-written CUDA (``csrc/chunk_kernels.cu``, bound in
-``kernels.py``).  Each wrapper here has a plain-torch twin with the same
-signature; a CPU tensor goes to the twin, a CUDA tensor to the kernel, and
-anything else raises.  Each wrapper counts its kernel launches in its
-``launches`` attribute.
+The same machinery serves two more consumers: ``light_pdf_sum_chunks``, the
+all-hits light pdf of scenes with more than 512 lights (B1 on the light
+clusters' AABBs, a per-tile worklist of pierced clusters, kernel B3), and
+``nearest_box_ids``, the worklist group each ray enters first (kernel B4),
+which the "target" wavefront sort key orders by.  The other sort keys
+("hint", "dirhint", "cell") are plain tensor code at the end.
+
+The kernels are hand-written CUDA (``csrc/chunk_kernels.cu`` for B1/B2,
+``csrc/light_sort_kernels.cu`` for B3/B4, bound in ``kernels.py``).  Each
+wrapper here has a plain-torch twin with the same signature; a CPU tensor
+goes to the twin, a CUDA tensor to the kernel, and anything else raises.
+Each wrapper counts its kernel launches in its ``launches`` attribute.
 
 Not ported: the TPU-only modes ("dense", "twopass", "bins"), the cheap
-recheck forms, the SMEM-budget caps (``max_cap``) and the iterating
-residual they forced — on the GPU the residual is always one pass.
+recheck forms, the SMEM-budget caps (``max_cap``, ``light_items``) and what
+they forced: the iterating residual and the light pdf's item windows with
+their ``sum0`` chaining and visited-tile patch — on the GPU the residual is
+always one pass and a block reads its tile's whole worklist.
 """
 
 from __future__ import annotations
@@ -107,6 +116,27 @@ def group_boxes(chunk_min: torch.Tensor, chunk_max: torch.Tensor, group: int = G
 # --------------------------------------------------------------------------
 
 
+def _inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1/d with a zero component taken as 1e-30, so an origin on a slab
+    plane gives t = 0 instead of 0 * inf = NaN."""
+    return 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
+
+
+def _slab(o: torch.Tensor, inv: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor):
+    """[R, 3] origins and reciprocal directions x [B, 3] boxes -> the slab
+    interval (t_lo, t_hi), each [R, B], in the kernels' operation order;
+    ``torch.minimum/maximum`` propagate NaN, so NaN boxes give NaN."""
+    t_lo = t_hi = None
+    for a in range(3):
+        t1 = (bmin[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+        t2 = (bmax[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+        lo = torch.minimum(t1, t2)
+        hi = torch.maximum(t1, t2)
+        t_lo = lo if t_lo is None else torch.maximum(t_lo, lo)
+        t_hi = hi if t_hi is None else torch.minimum(t_hi, hi)
+    return t_lo, t_hi
+
+
 def tile_chunk_activity_plain(
     rays: torch.Tensor,  # [R, 8] (o, 1, d, 0)
     cmin: torch.Tensor,  # [C, 3] (NaN rows never activate)
@@ -131,20 +161,12 @@ def tile_chunk_activity_plain(
     t_tiles = r // ray_tile
     rows = ray_tile // n_sub
     o = rays[:, 0:3]
-    d = rays[:, 4:7]
-    inv = 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
+    inv = _inv_dir(rays[:, 4:7])
     tb = (torch.full((r,), _INF, device=rays.device) if tbest is None else tbest)[:, None]
     sub_ent = torch.full((t_tiles, n_sub, c), _INF, device=rays.device)
     for b, c0 in enumerate(range(0, c, ACT_COLS)):
         c1 = min(c0 + ACT_COLS, c)
-        t_lo = t_hi = None
-        for a in range(3):
-            t1 = (cmin[None, c0:c1, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
-            t2 = (cmax[None, c0:c1, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
-            lo = torch.minimum(t1, t2)
-            hi = torch.maximum(t1, t2)
-            t_lo = lo if t_lo is None else torch.maximum(t_lo, lo)
-            t_hi = hi if t_hi is None else torch.minimum(t_hi, hi)
+        t_lo, t_hi = _slab(o, inv, cmin[c0:c1], cmax[c0:c1])
         hit = (t_lo <= t_hi) & (t_hi >= min_dst) & (t_lo <= tb)
         entry = torch.where(hit, torch.clamp_min(t_lo, min_dst), torch.full_like(t_lo, _INF))
         blk = entry.reshape(t_tiles, n_sub, rows, c1 - c0).amin(dim=2)
@@ -448,6 +470,182 @@ def closest_hit_chunks(
     )
 
 
+# --------------------------------------------------------------------------
+# Kernel B3: all-hits light pdf over pierced light clusters (replaces
+# pallas_intersect._kernel_light_pdf_items)
+# --------------------------------------------------------------------------
+
+
+def run_light_pdf_plain(
+    rays: torch.Tensor,  # [R, 8]
+    cluster_woop: torch.Tensor,  # [C, 12, CL] (NaN rows: padding lights)
+    cluster_k: torch.Tensor,  # [C, CL] = 1 / (2 area^2), 0 on padding
+    idx: torch.Tensor,  # [T, cap] int32 cluster ids, front to back
+    counts: torch.Tensor,  # [T] int32 valid slots per tile
+    min_dst: float,
+) -> torch.Tensor:
+    """Plain twin of the B3 kernel: for every tile and every valid slot s,
+    the projection terms t^2 |d|^2 k / |q2| of the tile's rays against the
+    lights of cluster idx[tile, s] where the Woop test passes and t >=
+    min_dst, summed over the cluster and added to each ray's running sum in
+    worklist order.  Returns the [R] sum (not yet divided by the light
+    count).  t, beta and gamma round op for op like the kernel's, so the
+    two pass the same lights; only the order of the sum differs."""
+    t_tiles = idx.shape[0]
+    r = rays.shape[0]
+    rt = r // t_tiles
+    o = rays[:, 0:3].reshape(t_tiles, rt, 3)
+    d = rays[:, 4:7].reshape(t_tiles, rt, 3)
+    dd = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2])[..., None]
+    total = torch.zeros((t_tiles, rt), device=rays.device)
+    n_slots = int(counts.max()) if counts.numel() else 0
+    for s in range(n_slots):
+        c = idx[:, s].long()
+        w = cluster_woop[c]  # [T, 12, CL]
+        k = cluster_k[c][:, None, :]  # [T, 1, CL]
+        p0, p1, p2 = (_contract_o(o, w, j) for j in (0, 4, 8))
+        q0, q1, q2 = (_contract_d(d, w, j) for j in (0, 4, 8))
+        t = -p2 / q2
+        beta = p0 + t * q0
+        gamma = p1 + t * q1
+        ok = (beta >= 0) & (gamma >= 0) & (beta + gamma <= 1) & (t >= min_dst)
+        term = t * t * dd * k / torch.abs(q2)
+        csum = torch.where(ok, term, torch.zeros_like(term)).sum(dim=-1)
+        total = torch.where((counts > s)[:, None], total + csum, total)
+    return total.reshape(r)
+
+
+def run_light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
+    """B3 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors (see ``run_light_pdf_plain`` for the contract)."""
+    if rays.is_cuda:
+        from .. import kernels
+
+        out = kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
+        run_light_pdf.launches += 1
+        return out
+    if rays.device.type == "cpu":
+        return run_light_pdf_plain(rays, cluster_woop, cluster_k, idx, counts, min_dst)
+    raise RuntimeError(f"run_light_pdf: no kernel for device {rays.device}")
+
+
+run_light_pdf.launches = 0
+
+
+def light_pdf_sum_chunks(
+    origin: torch.Tensor,  # [R, 3], R % ray_tile == 0
+    direction: torch.Tensor,  # [R, 3]
+    cluster_woop: torch.Tensor,  # [C, 12, CL]
+    cluster_k: torch.Tensor,  # [C, CL]
+    cluster_min: torch.Tensor,  # [C, 3] (NaN: empty cluster)
+    cluster_max: torch.Tensor,  # [C, 3]
+    light_count: int,
+    min_dst: float,
+    ray_tile: int = RAY_TILE,
+) -> torch.Tensor:
+    """The all-hits light pdf (sum / count) at a cost that scales with the
+    clusters a tile's rays pierce, not with the light count: the cluster
+    AABBs' slab test (B1, one bit per tile), a per-tile worklist of the
+    pierced clusters, and B3 over each worklist.  Exact: a cluster whose
+    box no ray of the tile enters contributes 0 from all its lights.
+
+    Not ported: the TPU's SMEM-budget windows over the item list (the
+    ``light_items`` knob, the ``sum0`` chaining and the visited-tile
+    patch); a GPU block reads its tile's worklist in one pass."""
+    r = origin.shape[0]
+    if r % ray_tile:
+        raise ValueError(f"ray count {r} is not a multiple of the ray tile {ray_tile}")
+    c = cluster_woop.shape[0]
+    rays = pack_rays(origin, direction)
+    m8, ent, _ = tile_chunk_activity(
+        rays, cluster_min.contiguous(), cluster_max.contiguous(), None, None, min_dst, ray_tile
+    )
+    ga, ge = _group_stats(m8 != 0, ent, 1)
+    idx, counts, _ = _worklist(ga, ge, c)
+    total = run_light_pdf(
+        rays, cluster_woop.contiguous(), cluster_k.contiguous(), idx.contiguous(),
+        counts.contiguous(), min_dst,
+    )
+    return total / float(max(light_count, 1))
+
+
+# --------------------------------------------------------------------------
+# Kernel B4: first-entered box per ray (replaces pallas_intersect._nearest_kernel)
+# --------------------------------------------------------------------------
+
+
+def nearest_box_ids_plain(
+    rays: torch.Tensor,  # [R, 8]
+    box_min: torch.Tensor,  # [G, 3] (NaN rows never match)
+    box_max: torch.Tensor,  # [G, 3]
+    min_dst: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the B4 kernel: per ray, over the boxes with t_lo <=
+    t_hi and t_hi >= min_dst, the smallest entry max(t_lo, min_dst) and its
+    box id (the first minimum); (inf, -1) where no box is entered.  Column
+    blocks of ``ACT_COLS`` bound the memory: inside a block the argmin is
+    the first minimum and a strict < across blocks keeps the earlier block,
+    so the result is the first minimum overall."""
+    r = rays.shape[0]
+    o = rays[:, 0:3]
+    inv = _inv_dir(rays[:, 4:7])
+    tmin = torch.full((r,), _INF, device=rays.device)
+    arg = torch.full((r,), -1, dtype=torch.int32, device=rays.device)
+    for g0 in range(0, box_min.shape[0], ACT_COLS):
+        t_lo, t_hi = _slab(o, inv, box_min[g0:g0 + ACT_COLS], box_max[g0:g0 + ACT_COLS])
+        ok = (t_lo <= t_hi) & (t_hi >= min_dst)
+        entry = torch.where(ok, torch.clamp_min(t_lo, min_dst), torch.full_like(t_lo, _INF))
+        bm, ba = entry.min(dim=1)
+        better = bm < tmin
+        tmin = torch.where(better, bm, tmin)
+        arg = torch.where(better, (ba + g0).to(torch.int32), arg)
+    return tmin, arg
+
+
+def nearest_box_ids(
+    origin: torch.Tensor,  # [R, 3], R % ray_tile == 0
+    direction: torch.Tensor,  # [R, 3]
+    box_min: torch.Tensor,  # [G, 3] (NaN rows never match)
+    box_max: torch.Tensor,  # [G, 3]
+    min_dst: float,
+    ray_tile: int = RAY_TILE,
+) -> torch.Tensor:
+    """The box each ray FIRST enters ([R] int32 id, -1 = none): B4 for CUDA
+    tensors, its plain twin for CPU tensors, on the boxes NaN-padded to a
+    multiple of ``ACT_COLS`` as the JAX package pads them."""
+    r = origin.shape[0]
+    if r % ray_tile:
+        raise ValueError(f"ray count {r} is not a multiple of the ray tile {ray_tile}")
+    gpad = -(-box_min.shape[0] // ACT_COLS) * ACT_COLS
+    bmin = _nan_pad(box_min, gpad).contiguous()
+    bmax = _nan_pad(box_max, gpad).contiguous()
+    rays = pack_rays(origin, direction)
+    if rays.is_cuda:
+        from .. import kernels
+
+        _, ids = kernels.nearest(rays, bmin, bmax, min_dst)
+        nearest_box_ids.launches += 1
+        return ids
+    if rays.device.type == "cpu":
+        return nearest_box_ids_plain(rays, bmin, bmax, min_dst)[1]
+    raise RuntimeError(f"nearest_box_ids: no kernel for device {rays.device}")
+
+
+nearest_box_ids.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Wavefront sort keys
+# --------------------------------------------------------------------------
+
+_SORT_CELLS = 16  # origin-cell grid resolution per axis of the "cell" key
+
+
+def scene_bounds(chunk_min: torch.Tensor, chunk_max: torch.Tensor):
+    """Scene AABB over the chunk boxes (NaN padding chunks ignored)."""
+    return _nanmin(chunk_min, 0), _nanmax(chunk_max, 0)
+
+
 def _dir_octant(direction: torch.Tensor) -> torch.Tensor:
     """[R, 3] -> [R] int32 direction octant."""
     return (
@@ -464,3 +662,52 @@ def ray_sort_key_hint(direction, alive, hint, n_chunks: int) -> torch.Tensor:
     bucket = torch.clamp(torch.where(hint >= 0, hint, n_chunks), 0, n_chunks)
     key = _dir_octant(direction) * (n_chunks + 1) + bucket
     return torch.where(alive, key, torch.full_like(key, 1 << 28))
+
+
+def ray_sort_key_target(origin, direction, alive, group_min, group_max, min_dst: float,
+                        ray_tile: int = RAY_TILE) -> torch.Tensor:
+    """Coherence key from the worklist group each ray will FIRST enter
+    (``nearest_box_ids``, major) x direction octant (minor); rays that enter
+    nothing share one bucket before the dead rays."""
+    g = group_min.shape[0]
+    tgt = nearest_box_ids(origin, direction, group_min, group_max, min_dst, ray_tile)
+    key = torch.where(tgt >= 0, tgt, g) * 8 + _dir_octant(direction)
+    return torch.where(alive, key, torch.full_like(key, 1 << 28))
+
+
+def ray_sort_key_dirhint(direction, alive, hint, n_chunks: int) -> torch.Tensor:
+    """Fine-direction-major key: (dominant axis, 4x4 bins of the two minor
+    direction components), then the spawn-surface chunk id, then the
+    octant; dead rays take the int32 maximum.  The bins are clamped before
+    the integer conversion, which equals truncating then clamping for the
+    finite directions of live rays."""
+    octant = _dir_octant(direction)
+    dom = torch.argmax(direction.abs(), dim=1)
+    minor0 = torch.where(dom == 0, direction[:, 1], direction[:, 0])
+    minor1 = torch.where(dom == 2, direction[:, 1], direction[:, 2])
+    b0 = torch.clamp((minor0 + 1.0) * 2.0, 0.0, 3.0).to(torch.int32)
+    b1 = torch.clamp((minor1 + 1.0) * 2.0, 0.0, 3.0).to(torch.int32)
+    dir4 = (dom.to(torch.int32) * 4 + b0) * 4 + b1
+    bucket = torch.clamp(torch.where(hint >= 0, hint, n_chunks), 0, n_chunks)
+    key = (dir4 * (n_chunks + 1) + bucket) * 8 + octant
+    return torch.where(alive, key, torch.full_like(key, 2**31 - 1))
+
+
+def ray_sort_key(origin, direction, alive, scene_lo, scene_hi) -> torch.Tensor:
+    """The "cell" key: direction octant (major) x the Morton-interleaved
+    origin cell of a 16^3 grid over the scene bounds; dead rays sort last.
+    The cell is clamped before the integer conversion (equal to clamping
+    after it, and defined for the far-parked origins of dead lanes)."""
+    ext = torch.clamp_min(scene_hi - scene_lo, 1e-30)
+    cell = torch.clamp(
+        (origin - scene_lo) / ext * float(_SORT_CELLS), 0.0, _SORT_CELLS - 1.0
+    ).to(torch.int32)
+
+    def spread(x):  # up to 8 bits -> every 3rd bit (Morton)
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    morton = spread(cell[:, 0]) * 4 + spread(cell[:, 1]) * 2 + spread(cell[:, 2])
+    key = _dir_octant(direction) * _SORT_CELLS**3 + morton
+    return torch.where(alive, key, torch.full_like(key, 1 << 20))

@@ -4,10 +4,13 @@
 Repeat-wrap, bilinear, per-texel gamma decode before the lerp; a 1x1 texture
 returns its raw texel with no gamma (src/geometry.h:548-550).  Both the flat
 ``[T, 4]`` texel pool and the corner-quad ``[T, 16]`` pool are supported and
-give the same values.  ``env_radiance`` is not ported yet.
+give the same values.  ``env_radiance`` is the equirectangular environment
+lookup of rays that leave the scene.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -109,3 +112,19 @@ def sample_many(
     )
     single = torch.repeat_interleave((w * h) == 1, 4, dim=1)
     return torch.where(single, flat0[:, 0:4 * k], bilinear)
+
+
+def env_radiance(
+    atlas: TextureAtlas,
+    env_tex: int,  # atlas id of the environment map
+    bg_color: torch.Tensor,  # [3]
+    direction: torch.Tensor,  # [R, 3] (unit)
+) -> torch.Tensor:  # [R, 3]
+    """Scene::bg_at equirect lookup (src/scene.h:83-89): gamma-2.2 decoded
+    bilinear fetch at (u, v) from the direction, times ``bg_color``."""
+    d = direction
+    u = 0.5 + 0.5 * torch.atan2(d[:, 2], d[:, 0]) / math.pi
+    v = 0.5 - torch.asin(torch.clamp(d[:, 1], -1.0, 1.0)) / math.pi
+    tex_ids = torch.full(d.shape[:1], env_tex, dtype=torch.int32, device=d.device)
+    c = sample(atlas, tex_ids, torch.stack([u, v], dim=-1), 2.2)
+    return bg_color[None, :] * c[:, :3]

@@ -10,8 +10,9 @@ modules of the JAX package (``tri_capacity``, ``build_woop``,
 and ``quad_pool``) are copied here; the spatial builders come from the
 jax-free ``tpu_pathtracer.scene.accel`` (native C++ packer first).
 
-Environment maps and the extra camera-space light triangle are a later slice
-and raise ``NotImplementedError``.
+``config.use_env_map`` adds the environment map to the atlas and
+``config.add_light_triangle`` the extra camera-space light triangle, as the
+JAX loader does.
 """
 
 from __future__ import annotations
@@ -484,16 +485,6 @@ def parse_gltf_scene(
 ) -> T.TriangleScene:
     """Load a .gltf/.glb file into a CPU-resident ``TriangleScene`` (move it
     with ``.to(device)``)."""
-    if config.use_env_map:
-        raise NotImplementedError(
-            "environment maps are not ported yet (ROADMAP: next slices, "
-            "env maps and the light triangle)"
-        )
-    if config.add_light_triangle:
-        raise NotImplementedError(
-            "add_light_triangle is not ported yet (ROADMAP: next slices, "
-            "env maps and the light triangle)"
-        )
     glb_bin = None
     if path.endswith(".glb"):
         root, glb_bin = _read_glb(path)
@@ -526,6 +517,10 @@ def parse_gltf_scene(
                 buffers[view["buffer"]][off:off + view["byteLength"]]
             ))
 
+    env_tex = T.TEX_WHITE
+    if config.use_env_map:
+        env_tex = atlas.add(_load_image_rgba(config.env_map_path))
+
     scene_idx = root.get("scene", 0)
     scenes = root.get("scenes", [])
     acc = _SceneAccum()
@@ -541,11 +536,40 @@ def parse_gltf_scene(
             width=0, height=0, position=(0, 0, 0), right=(1, 0, 0),
             up=(0, 1, 0), forward=(0, 0, -1), fov_x=1.5708,
         )
-    return _pack_triangle_scene(acc, atlas, config)
+    if config.add_light_triangle:
+        _add_light_triangle(acc, config)
+    return _pack_triangle_scene(acc, atlas, env_tex, config)
+
+
+def _add_light_triangle(acc: _SceneAccum, config: RenderConfig) -> None:
+    """The extra camera-space light triangle (src/scene.h:479-498), in the
+    JAX loader's float32 arithmetic."""
+    cam = acc.camera
+    x, y, z, w = (v.numpy() for v in (cam.right, cam.up, cam.forward, cam.position))
+    rel = np.asarray(config.light_triangle_relative_pos, dtype=np.float32)
+    verts = w[None, :] + rel[:, 0:1] * x + rel[:, 1:2] * y + rel[:, 2:3] * z
+    fn = np.cross(verts[1] - verts[0], verts[2] - verts[0])
+    fn = fn / np.linalg.norm(fn)
+    acc.verts.append(verts[None].astype(np.float32))
+    acc.normals.append(np.tile(fn.astype(np.float32), (1, 3, 1)))
+    acc.uvs.append(np.zeros((1, 3, 2), dtype=np.float32))
+    acc.tangents.append(np.tile(np.array([1, 0, 0], dtype=np.float32), (1, 3, 1)))
+    light_mat = dict(
+        color=np.array([1, 1, 1, 1], dtype=np.float64),
+        emission=np.full(3, config.light_triangle_intensity, dtype=np.float64),
+        metallic=1.0,
+        roughness=1.0,
+        ior=1.5,
+        color_tex=T.TEX_WHITE,
+        emissive_tex=T.TEX_WHITE,
+        mr_tex=T.TEX_WHITE,
+        normal_tex=T.TEX_NORMAL_UP,
+    )
+    acc.mat_rows.append(_material_row(light_mat)[None])
 
 
 def _pack_triangle_scene(
-    acc: _SceneAccum, atlas: _AtlasBuilder, config: RenderConfig
+    acc: _SceneAccum, atlas: _AtlasBuilder, env_tex: int, config: RenderConfig
 ) -> T.TriangleScene:
     n = acc.n_tris()
     cap = tri_capacity(n)
@@ -640,11 +664,11 @@ def _pack_triangle_scene(
         atlas=atlas.build(quad_max=tuning.quad_max),
         lights=lights,
         bg_color=torch.full((3,), config.env_map_intensity, dtype=torch.float32),
-        env_tex=T.TEX_WHITE,
+        env_tex=env_tex,
         camera=acc.camera,
         ray_depth=config.default_ray_depth,
         samples=1,
-        has_env=False,
+        has_env=env_tex != T.TEX_WHITE,
         tex_slots=(
             bool((mats[:n, 10] != T.TEX_WHITE).any()),
             bool((mats[:n, 11] != T.TEX_WHITE).any()),
