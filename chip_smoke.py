@@ -12,6 +12,11 @@ plain-torch twin on the inputs of the real paths, 65,536-ray batches:
   b1, b2, cascade  the enclosed atrium (~218k triangles): activity and item
                    kernels, and the cascade against the dense sweep;
   b4               the first-entered-group kernel on the atrium's groups;
+  b5, b6, b7       the dense-grid, slot-grid and per-ray-group-bits kernels
+                   of the intersector's modes on the atrium's rays;
+  modes            ``closest_hit_chunks`` under "twopass", "dense", "bins"
+                   and the cheap rechecks against the brute force, and a
+                   forced bins overflow;
   b3               the light-pdf kernel on the lit-banner atrium (the
                    atrium with its green banners emissive: ~24,600 lights
                    in 193 clusters).
@@ -26,9 +31,14 @@ just before and read just after:
                    triangle, through ``cli.render_scene_file``;
   sort_keys        the atrium through ``render`` under the "target" (kernel
                    B4), "cell" and "dirhint" keys;
+  modes_render     the atrium under "twopass" (B6) and "bins" (B7) at 16 spp,
+                   "dense" (B5) and the cheap rechecks at 4 spp beside an
+                   "items" render at 4 spp;
+  engine           the atrium through the scan engine with Sobol jitter and
+                   bounce draws at 4 spp;
 
 and checks the Cornell goldens (plain, environment map PNG and HDR, light
-triangle) at 64x64 @ 64 spp.
+triangle, Sobol bounce draws, Sobol jitter) at 64x64 @ 64 spp.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero without the final line.  The last two lines before the final one
@@ -111,7 +121,8 @@ def counters():
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
-            "b4": ci.nearest_box_ids}
+            "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
+            "b7": ci.ray_group_bools}
 
 
 def reset_launches():
@@ -156,7 +167,7 @@ def make_inputs(tmp, lit_banners=False):
     pids = torch.arange(n, dtype=torch.int32, device=DEV)
     o, d = pt.gen_rays(scene.camera, pids, jitter_uniforms(0, 0, pids))
     alive = torch.ones(n, dtype=torch.bool, device=DEV)
-    draws = pt.bounce_draws(0, 0, 0, pids)
+    draws = pt.bounce_draws(0, 0, 0, pids, config)
     o2, d2, _, _, alive2, hint = pt.bounce_step(
         scene, config, o, d, torch.ones_like(o), torch.zeros_like(o), alive, draws
     )
@@ -229,8 +240,7 @@ def worklists(scene, o, d):
 
 
 def phase_b2(scene, rays_sets):
-    """B2 kernel vs its twin on real worklists: t equal to 1 ulp, tri equal
-    except where two triangles give exactly the same t (counted)."""
+    """B2 kernel vs its twin on real worklists (``compare_hits``)."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
     from tpu_pathtracer_torch import kernels
 
@@ -246,38 +256,75 @@ def phase_b2(scene, rays_sets):
             tk, ik = kernels.items(*args)
             tp, ip = ci.run_items_plain(*args)
             torch.cuda.synchronize()
-            fin = torch.isfinite(tp)
-            if not torch.equal(torch.isfinite(tk), fin):
-                raise AssertionError(f"B2 hit masks differ ({name}, {wl_name})")
-            ulp = (tk[fin].view(torch.int32) - tp[fin].view(torch.int32)).abs()
-            err = float((tk[fin] - tp[fin]).abs().max()) if fin.any() else 0.0
-            tri_diff = (ik != ip) & fin
-            ties = int((tri_diff & (tk == tp)).sum())
-            bad_tri = int(tri_diff.sum()) - ties
-            worst = max(worst, err)
-            emit("b2", rays=name, worklist=wl_name, items=int(counts.sum()),
-                 hits=int(fin.sum()), max_ulp=int(ulp.max()) if fin.any() else 0,
-                 max_abs_err=err, tri_mismatch=bad_tri, exact_t_ties=ties)
-            if (fin.any() and int(ulp.max()) > 1) or bad_tri:
-                raise AssertionError(f"B2 kernel disagrees with its twin ({name}, {wl_name})")
+            worst = max(worst, compare_hits("b2", name, tk, ik, tp, ip, worklist=wl_name,
+                                            items=int(counts.sum())))
             if name == "secondary" and wl_name == "residual":
                 timing = args
     return worst, timing
+
+
+def brute_force(scene, o, d):
+    """The closest hit in the kernels' own arithmetic: the B2 twin run over
+    every chunk group of every tile with all sub-tile bits set."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    group = ci.GROUP
+    cg = -(-scene.chunk_woop.shape[0] // group)
+    cw = ci._nan_pad(scene.chunk_woop, cg * group).contiguous()
+    r = o.shape[0]
+    t_tiles = r // ci.RAY_TILE
+    idx = torch.arange(cg, dtype=torch.int32, device=DEV).expand(t_tiles, cg).contiguous()
+    counts = torch.full((t_tiles,), cg, dtype=torch.int32, device=DEV)
+    masks = torch.full((t_tiles, cg, 2), -1, dtype=torch.int32, device=DEV)
+    return ci.run_items_plain(
+        ci.pack_rays(o, d), torch.full((r,), math.inf, device=DEV),
+        torch.zeros((r,), dtype=torch.int32, device=DEV), cw, idx, counts, masks,
+        EPS, group, 8,
+    )
+
+
+def check_brute(phase, label, scene, o, d, got, brute):
+    """``got`` (an intersector's Hit) against the brute force: t exactly
+    equal (a differing triangle is then an exact-t tie) except on rays whose
+    own slab test, rounded, cannot reach the brute-force winner's chunk
+    before the ray's hit (a hit on a chunk's AABB face, which the JAX
+    package's modes share).  Each differing ray is checked for that and
+    printed; they may be at most 0.1% of the rays.  Returns the printed
+    fields."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    t_bf, tri_bf = brute
+    bf_hit = torch.isfinite(t_bf)
+    differ = (bf_hit != got.hit) | (bf_hit & (got.t != t_bf))
+    bf_ties = int(((got.tri != tri_bf) & bf_hit & ~differ).sum())
+    ids = differ.nonzero()[:, 0]
+    ch = torch.div(tri_bf[ids], ci.CHUNK_TRIS, rounding_mode="floor").long()
+    oo, dd = o[ids], d[ids]
+    inv = 1.0 / torch.where(dd == 0, torch.full_like(dd, 1e-30), dd)
+    t1 = (scene.chunk_aabb_min[ch] - oo) * inv
+    t2 = (scene.chunk_aabb_max[ch] - oo) * inv
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    t_lo = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    t_hi = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    reach = (t_lo <= t_hi) & (t_hi >= EPS) & (t_lo <= got.t[ids])
+    for k in range(min(8, ids.numel())):
+        emit(phase + "_diff", rays=label, ray=int(ids[k]), t_brute=float(t_bf[ids[k]]),
+             tri_brute=int(tri_bf[ids[k]]), t_got=float(got.t[ids[k]]),
+             tri_got=int(got.tri[ids[k]]), slab_t_lo=float(t_lo[k]),
+             slab_t_hi=float(t_hi[k]), reachable=bool(reach[k]))
+    if bool(reach.any()) or int(differ.sum()) > 1e-3 * o.shape[0]:
+        raise AssertionError(f"{phase} differs from the brute force ({label})")
+    return dict(brute_differ=int(differ.sum()), brute_differ_unexplained=int(reach.sum()),
+                brute_tri_ties=bf_ties)
 
 
 def phase_cascade(scene, rays_sets):
     """closest_hit_chunks through the kernels, over all ~218k triangles,
     against two oracles.
 
-    1. The brute force in the kernels' own arithmetic: the B2 twin run over
-       every chunk group of every tile with all sub-tile bits set.  The
-       cascade skips only chunks whose AABB no ray of a 64-ray sub-tile
-       reaches before its best hit, so t must be exactly equal (a
-       differing triangle is then an exact-t tie) except on rays whose own
-       slab test, rounded, cannot reach the brute-force winner's chunk
-       (a hit on a chunk's AABB face, which the JAX cascade shares).  Each
-       differing ray is checked for that and printed; they may be at most
-       0.1% of the rays.
+    1. The brute force in the kernels' own arithmetic (``check_brute``):
+       the cascade skips only chunks whose AABB no ray of a 64-ray sub-tile
+       reaches before its best hit.
     2. The dense sweep (``ops.intersect.closest_hit``, a float32 matrix
        product), with the criteria of tests/test_pallas_intersect.py:62-72:
        hit masks agree on > 99.5% of rays, triangles on > 99% of common
@@ -288,46 +335,18 @@ def phase_cascade(scene, rays_sets):
        surface-spawned origin the terms are ~1e3 while p2 is ~1e-3, so a
        hit a few 1e-4 away is only known to ~1e-4 in either form.  Rays
        where the forms pick different triangles (an edge falls on either
-       side, or such a near-origin hit) are counted and reported."""
+       side, or such a near-origin hit) are counted and reported.
+
+    Returns {rays name: brute force (t, tri)} for the modes phase."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
     from tpu_pathtracer_torch.ops.intersect import closest_hit
 
-    group = ci.GROUP
-    cg = -(-scene.chunk_woop.shape[0] // group)
-    cw = ci._nan_pad(scene.chunk_woop, cg * group).contiguous()
+    brutes = {}
     for name, (o, d) in rays_sets.items():
         got = ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min,
                                     scene.chunk_aabb_max, scene.woop_rows, EPS)
-        r = o.shape[0]
-        t_tiles = r // ci.RAY_TILE
-        idx = torch.arange(cg, dtype=torch.int32, device=DEV).expand(t_tiles, cg).contiguous()
-        counts = torch.full((t_tiles,), cg, dtype=torch.int32, device=DEV)
-        masks = torch.full((t_tiles, cg, 2), -1, dtype=torch.int32, device=DEV)
-        t_bf, tri_bf = ci.run_items_plain(
-            ci.pack_rays(o, d), torch.full((r,), math.inf, device=DEV),
-            torch.zeros((r,), dtype=torch.int32, device=DEV), cw, idx, counts, masks,
-            EPS, group, 8,
-        )
-        bf_hit = torch.isfinite(t_bf)
-        differ = (bf_hit != got.hit) | (bf_hit & (got.t != t_bf))
-        bf_ties = int(((got.tri != tri_bf) & bf_hit & ~differ).sum())
-        # A ray may miss a triangle only where its own slab test cannot
-        # reach that triangle's chunk before the ray's cascade hit.
-        ids = differ.nonzero()[:, 0]
-        ch = torch.div(tri_bf[ids], ci.CHUNK_TRIS, rounding_mode="floor").long()
-        oo, dd = o[ids], d[ids]
-        inv = 1.0 / torch.where(dd == 0, torch.full_like(dd, 1e-30), dd)
-        t1 = (scene.chunk_aabb_min[ch] - oo) * inv
-        t2 = (scene.chunk_aabb_max[ch] - oo) * inv
-        lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
-        t_lo = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
-        t_hi = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
-        reach = (t_lo <= t_hi) & (t_hi >= EPS) & (t_lo <= got.t[ids])
-        for k in range(min(8, ids.numel())):
-            emit("cascade_diff", rays=name, ray=int(ids[k]), t_brute=float(t_bf[ids[k]]),
-                 tri_brute=int(tri_bf[ids[k]]), t_cascade=float(got.t[ids[k]]),
-                 tri_cascade=int(got.tri[ids[k]]), slab_t_lo=float(t_lo[k]),
-                 slab_t_hi=float(t_hi[k]), reachable=bool(reach[k]))
+        brutes[name] = brute_force(scene, o, d)
+        row = check_brute("cascade", name, scene, o, d, got, brutes[name])
 
         dense = closest_hit(o, d, scene.woop, EPS)
         hd, hp = dense.hit, got.hit
@@ -343,18 +362,209 @@ def phase_cascade(scene, rays_sets):
         t_rel = float(((got.t[same] - dense.t[same]).abs() / t_tol).max())
         b_rel = float(((got.beta[same] - dense.beta[same]).abs()
                        / (1e-5 + 1e-4 * dense.beta[same].abs())).max())
-        emit("cascade", rays=name, hits=int(both.sum()),
-             brute_differ=int(differ.sum()), brute_differ_unexplained=int(reach.sum()),
-             brute_tri_ties=bf_ties, dense_hit_agree=agree, dense_tri_agree=tri_eq,
-             dense_other_tri=int((both & ~same).sum()), t_tol_ratio=t_rel,
-             beta_tol_ratio=b_rel)
-        if bool(reach.any()) or int(differ.sum()) > 1e-3 * r:
-            raise AssertionError(f"cascade differs from the brute force ({name})")
+        emit("cascade", rays=name, hits=int(both.sum()), **row, dense_hit_agree=agree,
+             dense_tri_agree=tri_eq, dense_other_tri=int((both & ~same).sum()),
+             t_tol_ratio=t_rel, beta_tol_ratio=b_rel)
         if not (agree > 0.995 and tri_eq > 0.99 and t_rel <= 1.0 and b_rel <= 1.0):
             raise AssertionError(f"cascade disagrees with the dense sweep ({name})")
+    return brutes
 
 
-def phase_golden(tmp):
+def compare_hits(phase, label, tk, ik, tp, ip, **fields):
+    """A hit kernel's (t, tri) against its twin's: hit masks equal, t within
+    1 ulp, triangles equal except where the two t are exactly equal (counted
+    and printed: the kernels' designs should give none).  Returns the max
+    abs error of t."""
+    fin = torch.isfinite(tp)
+    if not torch.equal(torch.isfinite(tk), fin):
+        raise AssertionError(f"{phase} hit masks differ ({label})")
+    ulp = (tk[fin].view(torch.int32) - tp[fin].view(torch.int32)).abs()
+    err = float((tk[fin] - tp[fin]).abs().max()) if fin.any() else 0.0
+    tri_diff = (ik != ip) & fin
+    ties = int((tri_diff & (tk == tp)).sum())
+    bad_tri = int(tri_diff.sum()) - ties
+    emit(phase, rays=label, **fields, hits=int(fin.sum()),
+         max_ulp=int(ulp.max()) if fin.any() else 0, max_abs_err=err, tri_mismatch=bad_tri,
+         exact_t_ties=ties)
+    if (fin.any() and int(ulp.max()) > 1) or bad_tri or not fin.any():
+        raise AssertionError(f"{phase} kernel disagrees with its twin ({label})")
+    return err
+
+
+def dense_inputs(scene, o, d):
+    """B5's inputs in mode "dense" on these rays: the packed rays, the
+    NaN-padded chunk Woop blocks and the bit-packed initial activity (the
+    super-block gate included)."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    group = ci.GROUP
+    cg = -(-scene.chunk_woop.shape[0] // group)
+    cw = ci._nan_pad(scene.chunk_woop, cg * group).contiguous()
+    cmin = ci._nan_pad(scene.chunk_aabb_min, cg * group).contiguous()
+    cmax = ci._nan_pad(scene.chunk_aabb_max, cg * group).contiguous()
+    rays = ci.pack_rays(o, d)
+    cbits = ci.super_block_bits(rays, cmin, cmax, EPS, ci.RAY_TILE)
+    m8, _, _ = ci.tile_chunk_activity(rays, cmin, cmax, None, cbits, EPS, ci.RAY_TILE, 8)
+    r = rays.shape[0]
+    return (rays, torch.full((r,), math.inf, device=DEV),
+            torch.zeros((r,), dtype=torch.int32, device=DEV), cw, ci._bitpack(m8 != 0), EPS)
+
+
+def phase_b5(scene, rays_sets):
+    """B5 kernel vs its twin on the bit-packed initial activity of the
+    atrium's primaries and secondaries ([128, 54] words), and bit-equal
+    across two runs (its atomics take a minimum, whose result does not
+    depend on their order).  Returns (max abs error, timing args)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    worst, timing = 0.0, None
+    for name, (o, d) in rays_sets.items():
+        args = dense_inputs(scene, o, d)
+        tk, ik = kernels.dense(*args)
+        tk2, ik2 = kernels.dense(*args)
+        tp, ip = ci.run_dense_plain(*args)
+        torch.cuda.synchronize()
+        bits = args[4]
+        worst = max(worst, compare_hits(
+            "b5", name, tk, ik, tp, ip, bits_shape=list(bits.shape),
+            active_pairs=int(sum(int((bits >> k & 1).sum()) for k in range(32))),
+            deterministic=bool(torch.equal(tk, tk2) and torch.equal(ik, ik2))))
+        if not (torch.equal(tk, tk2) and torch.equal(ik, ik2)):
+            raise AssertionError(f"B5 is not deterministic ({name})")
+        if name == "secondary":
+            timing = args
+    return worst, timing
+
+
+def phase_b6(scene, rays_sets):
+    """B6 kernel vs its twin on the near-pass-1 and residual worklists of
+    phase b2, bit-equal across two runs, and equal to B2's output on the
+    same worklists (t and triangle).  Returns (max abs error, timing args)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    worst, timing = 0.0, None
+    for name, (o, d) in rays_sets.items():
+        rays, cw, wls = worklists(scene, o, d)
+        r = rays.shape[0]
+        t0 = torch.full((r,), math.inf, device=DEV)
+        i0 = torch.zeros((r,), dtype=torch.int32, device=DEV)
+        for wl_name, (idx, counts, masks) in wls.items():
+            args = (rays, t0, i0, cw, idx, counts, masks, EPS, ci.GROUP, 8)
+            tk, ik = kernels.slots(*args)
+            tk2, ik2 = kernels.slots(*args)
+            tb, ib = kernels.items(*args)
+            tp, ip = ci.run_slots_plain(*args)
+            torch.cuda.synchronize()
+            same_b2 = bool(torch.equal(tk, tb) and torch.equal(ik, ib))
+            det = bool(torch.equal(tk, tk2) and torch.equal(ik, ik2))
+            worst = max(worst, compare_hits(
+                "b6", f"{name}/{wl_name}", tk, ik, tp, ip, items=int(counts.sum()),
+                slots=idx.shape[1], equal_to_b2=same_b2, deterministic=det))
+            if not (same_b2 and det):
+                raise AssertionError(f"B6 differs from B2 or from itself ({name}, {wl_name})")
+            if name == "secondary" and wl_name == "residual":
+                timing = args
+    return worst, timing
+
+
+def phase_b7(scene, rays_sets):
+    """B7 kernel vs its twin: the per-ray group bits [256, 65,536] of the
+    atrium's 2,048 padded chunks, exactly equal.  Returns (max abs
+    difference, timing args)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    c = scene.chunk_aabb_min.shape[0]
+    cpad = -(-c // ci.ACT_COLS) * ci.ACT_COLS
+    cmin = ci._nan_pad(scene.chunk_aabb_min, cpad).contiguous()
+    cmax = ci._nan_pad(scene.chunk_aabb_max, cpad).contiguous()
+    worst, timing = 0, None
+    for name, (o, d) in rays_sets.items():
+        args = (ci.pack_rays(o, d), cmin, cmax, EPS, ci.GROUP)
+        k = kernels.ray_groups(*args)
+        p = ci.ray_group_bools_plain(*args)
+        torch.cuda.synchronize()
+        cg = -(-c // ci.GROUP)
+        bad = int((k != p).sum())
+        worst = max(worst, int((k - p).abs().max()))
+        emit("b7", rays=name, shape=list(k.shape), pairs=int(p[:cg].sum()),
+             pairs_per_ray=float(p[:cg].sum()) / p.shape[1], mismatch=bad,
+             padding_set=int(k[cg:].sum()))
+        if bad or int(k[cg:].sum()) or not int(p.sum()):
+            raise AssertionError(f"B7 kernel disagrees with its twin ({name})")
+        if name == "secondary":
+            timing = args
+    return worst, timing
+
+
+def phase_modes(scene, rays_sets, brutes):
+    """closest_hit_chunks on the atrium's rays under "twopass", "dense",
+    "bins", and "items" with cheap_recheck 1 and 2: "twopass" must equal
+    "items" bit for bit, the others are held to the brute force as the
+    cascade is; each launch counter is read around its call.  Then the bins
+    overflow is forced (bins_cap 1): B5 must launch, B2 must not, and the
+    result must equal "dense".  Returns "items" vs "twopass" ms per call on
+    the secondaries."""
+    from tpu_pathtracer_torch.models.pathtracer import IntersectTuning
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    def run(o, d, **tuning):
+        reset_launches()
+        hit = ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min,
+                                    scene.chunk_aabb_max, scene.woop_rows, EPS,
+                                    tuning=IntersectTuning(**tuning))
+        torch.cuda.synchronize()
+        return hit, read_launches()
+
+    cases = {
+        "twopass": (dict(mode="twopass"), ("b1", "b6")),
+        "dense": (dict(mode="dense"), ("b1", "b5")),
+        "bins": (dict(mode="bins"), ("b7", "b2")),
+        "cheap1": (dict(cheap_recheck=1), ("b1", "b2")),
+        "cheap2": (dict(cheap_recheck=2), ("b1", "b2")),
+    }
+    ms = {}
+    for name, (o, d) in rays_sets.items():
+        items, _ = run(o, d)
+        gb = ci.ray_group_bools(ci.pack_rays(o, d), scene.chunk_aabb_min, scene.chunk_aabb_max,
+                                EPS)[:-(-scene.chunk_woop.shape[0] // ci.GROUP)]
+        rows = int(gb.sum())
+        hits = {}
+        for case, (tuning, needs) in cases.items():
+            got, launches = run(o, d, **tuning)
+            hits[case] = got
+            row = check_brute("modes", f"{name}/{case}", scene, o, d, got, brutes[name])
+            extra = {}
+            if case == "twopass":
+                extra["equal_to_items"] = bool(torch.equal(got.t, items.t)
+                                               and torch.equal(got.tri, items.tri))
+            if case == "bins":
+                extra.update(bins_rows=rows, bins_row_cap=o.shape[0] * 12,
+                             overflow=launches["b5"] > 0)
+            emit("modes", rays=name, case=case, hits=int(got.hit.sum()), **row, **extra,
+                 **{f"launches_{k}": v for k, v in launches.items()})
+            if any(launches[k] == 0 for k in needs) or extra.get("equal_to_items") is False:
+                raise AssertionError(f"modes {case} ({name}): {launches} {extra}")
+            if case == "bins" and launches["b5"]:
+                raise AssertionError(f"modes bins overflowed at the default cap ({name})")
+        got, launches = run(o, d, mode="bins", bins_cap=1)
+        same = bool(torch.equal(got.t, hits["dense"].t) and torch.equal(got.tri, hits["dense"].tri))
+        emit("modes", rays=name, case="bins_overflow", bins_rows=rows, bins_row_cap=o.shape[0],
+             equal_to_dense=same, **{f"launches_{k}": v for k, v in launches.items()})
+        if not same or launches["b5"] == 0 or launches["b2"] != 0:
+            raise AssertionError(f"forced bins overflow did not run B5 alone ({name}): {launches}")
+        if name == "secondary":
+            for mode in ("items", "twopass"):
+                ms[mode] = sync_ms(lambda: ci.closest_hit_chunks(
+                    o, d, scene.chunk_woop, scene.chunk_aabb_min, scene.chunk_aabb_max,
+                    scene.woop_rows, EPS, tuning=IntersectTuning(mode=mode)), 5)
+    emit("modes_timing", rays="secondary", items_ms=ms["items"], twopass_ms=ms["twopass"])
+    return ms
+
+
+def phase_golden(tmp, config=None, phase="golden"):
     """Cornell 64x64 @ 64 spp through the port (dense path) against the
     committed 4096-spp golden: rmse < 14, |mean difference| < 3 (u8)."""
     import dataclasses
@@ -370,30 +580,32 @@ def phase_golden(tmp):
     scene = parse_gltf_scene(p, 1.0)
     scene = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 64)).to(DEV)
     t0 = time.perf_counter()
-    img = render(scene, spp=64, seed=0)
+    img = render(scene, spp=64, seed=0, config=config)
     secs = time.perf_counter() - t0
     ours = quantize_u8(torch.from_numpy(img)).numpy().astype(np.float64)
     ref = read_ppm(os.path.join(ROOT, "tests", "golden", "cornell_64x64_4096spp.ppm")).astype(np.float64)
     rmse = float(np.sqrt(((ours - ref) ** 2).mean()))
     dmean = float(abs(ours.mean() - ref.mean()))
-    emit("golden", scene="cornell 64x64@64spp", rmse=rmse, abs_mean_diff=dmean,
-         seconds=round(secs, 3))
+    emit(phase, scene="cornell 64x64@64spp", rmse=rmse, abs_mean_diff=dmean,
+         seconds=round(secs, 3), **({} if config is None else dict(
+             jitter=config.jitter, lowdisc=config.lowdisc)))
     if not (rmse < 14.0 and dmean < 3.0):
         raise AssertionError("Cornell golden failed")
 
 
-def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None):
-    """One 512x512 @ 16 spp render with every launch counter set to 0 just
-    before and read just after: through the CLI entry point (``cli.main``,
-    default config) when ``config`` is None, else through
+def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None, spp=None):
+    """One 512x512 render at ``spp`` (default ``SPP``) with every launch
+    counter set to 0 just before and read just after: through the CLI entry
+    point (``cli.main``, default config) when ``config`` is None, else through
     ``cli.render_scene_file`` with ``config``.  Fails unless each kernel in
     ``needs`` launched, the HDR frame is finite and the PPM has the right
-    shape.  Returns the printed fields."""
+    shape.  Returns the printed fields, with the u8 image under "img"."""
     import numpy as np
 
     from tpu_pathtracer_torch import cli
     from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm, write_ppm
 
+    spp = SPP if spp is None else spp
     captured = {}
     render = cli.render
 
@@ -409,11 +621,11 @@ def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None):
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             if config is None:
-                rc = cli.main(["tpu_pathtracer_torch", path, str(W), str(H), str(SPP), out])
+                rc = cli.main(["tpu_pathtracer_torch", path, str(W), str(H), str(spp), out])
                 metrics = err.getvalue().strip().splitlines()[-1]
             else:
                 rc = 0
-                hdr, m = cli.render_scene_file(path, W, H, SPP, torch.device(DEV), config)
+                hdr, m = cli.render_scene_file(path, W, H, spp, torch.device(DEV), config)
                 write_ppm(out, quantize_u8(torch.from_numpy(hdr)).numpy())
                 metrics = m.to_json()
         total = time.perf_counter() - t0
@@ -426,20 +638,88 @@ def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None):
     hdr = captured["hdr"]
     img = read_ppm(out)
     load, rend = metrics["load_seconds"], metrics["render_seconds"]
+    rays = metrics.get("measured_rays")  # absent under the scan engine, as in the JAX package
     row = dict(scene=label, seconds_scene_generation=gen_seconds,
                seconds_load=load, seconds_render=rend,
                seconds_write=round(total - load - rend, 4), seconds_total=round(total, 4),
-               pixel_samples_per_s=W * H * SPP / rend, measured_rays=metrics["measured_rays"],
-               measured_mrays_per_s=metrics["measured_rays"] / rend / 1e6,
+               pixel_samples_per_s=W * H * spp / rend, measured_rays=rays,
+               measured_mrays_per_s=None if rays is None else rays / rend / 1e6,
                **{f"launches_{k}": v for k, v in launches.items()}, ppm_shape=list(img.shape),
                hdr_finite=bool(np.isfinite(hdr).all()), u8_mean=float(img.mean()))
     emit(phase, **row)
+    row["img"] = img
     missing = [k for k in needs if launches[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels {missing} never launched ({launches})")
     if img.shape != (H, W, 3) or not np.isfinite(hdr).all() or not img.mean() > 0:
         raise AssertionError(f"{phase}: render output is wrong")
     return row
+
+
+def fp_noise(want, got):
+    """tests/test_torch_render.py's rule for two renders with the same draws:
+    at most 0.5% of u8 channels differ by more than 1 (an ulp can flip one
+    Russian-roulette, alpha or strategy coin), image means within 0.1.
+    Returns (share of channels off by more than 1, mean difference, ok)."""
+    diff = abs(want.astype(int) - got.astype(int))
+    share = float((diff > 1).mean())
+    dmean = float(abs(want.astype(float).mean() - got.astype(float).mean()))
+    return share, dmean, share <= 0.005 and dmean < 0.1
+
+
+def phase_modes_render(path, tmp, main_row):
+    """The atrium through ``cli.render_scene_file`` with the intersector mode
+    set in ``RenderConfig.tuning``: "twopass" and "bins" at 512x512 @ 16 spp
+    beside the main phase's "items" render, "dense" and cheap_recheck 1 and
+    2 at 4 spp beside one "items" render at 4 spp.  Each must launch its
+    kernels; "twopass" must give the main phase's u8 image exactly, the
+    others agree with "items" at the same spp to fp noise.  Returns
+    {case: printed fields}."""
+    from tpu_pathtracer_torch.models.pathtracer import IntersectTuning, RenderConfig
+
+    cases = [
+        ("twopass", SPP, IntersectTuning(mode="twopass"), ("b1", "b6")),
+        ("bins", SPP, IntersectTuning(mode="bins"), ("b7", "b2")),
+        ("items", 4, IntersectTuning(), ("b1", "b2")),
+        ("dense", 4, IntersectTuning(mode="dense"), ("b1", "b5")),
+        ("cheap1", 4, IntersectTuning(cheap_recheck=1), ("b1", "b2")),
+        ("cheap2", 4, IntersectTuning(cheap_recheck=2), ("b1", "b2")),
+    ]
+    rows = {}
+    for case, spp, tuning, needs in cases:
+        row = phase_render(f"modes_render_{case}", f"atrium 512x512@{spp}spp mode {case}", path,
+                           tmp, needs, config=RenderConfig(tuning=tuning), spp=spp)
+        rows[case] = row
+        if case == "items":
+            continue
+        ref = main_row if spp == SPP else rows["items"]
+        if case == "twopass":
+            same = bool((row["img"] == ref["img"]).all())
+            emit("modes_render", case=case, spp=spp, identical_to_items=same)
+            if not same:
+                raise AssertionError("the twopass image differs from the items image")
+        else:
+            share, dmean, ok = fp_noise(ref["img"], row["img"])
+            emit("modes_render", case=case, spp=spp, u8_off_by_more_than_1=share,
+                 abs_mean_diff=dmean)
+            if not ok:
+                raise AssertionError(f"the {case} image disagrees with items")
+    return rows
+
+
+def phase_engine(path, tmp):
+    """The scan engine with Sobol jitter and bounce draws: the atrium at
+    512x512 @ 4 spp (measured rays are not counted by the scan engine), and
+    the Cornell golden with lowdisc="sobol" and with jitter="sobol"."""
+    from tpu_pathtracer_torch.models.pathtracer import RenderConfig
+
+    config = RenderConfig(compaction=False, jitter="sobol", lowdisc="sobol")
+    row = phase_render("engine", "atrium 512x512@4spp scan engine, Sobol", path, tmp,
+                       ("b1", "b2"), config=config, spp=4)
+    if row["measured_rays"] is not None:
+        raise AssertionError("the scan engine reported measured rays")
+    phase_golden(tmp, RenderConfig(lowdisc="sobol"), phase="engine_golden")
+    phase_golden(tmp, RenderConfig(jitter="sobol"), phase="engine_golden")
 
 
 def phase_b4(scene, rays_sets):
@@ -617,12 +897,17 @@ def main():
             print("PIL is not installed: the atriums are rendered untextured", flush=True)
         b1_err = phase_b1(scene, rays_sets)
         b2_err, b2_args = phase_b2(scene, rays_sets)
-        phase_cascade(scene, rays_sets)
+        brutes = phase_cascade(scene, rays_sets)
         b4_err, b4_args = phase_b4(scene, rays_sets)
+        b5_err, b5_args = phase_b5(scene, rays_sets)
+        b6_err, b6_args = phase_b6(scene, rays_sets)
+        b7_err, b7_args = phase_b7(scene, rays_sets)
+        phase_modes(scene, rays_sets, brutes)
 
         # Kernel vs twin time at the main paths' shapes: the initial gated
-        # activity pass, the residual item pass and the first-entered-group
-        # search on sorted atrium secondaries.
+        # activity pass, the residual item pass, the first-entered-group
+        # search, the dense grid on the initial activity, the residual slot
+        # pass and the per-ray group bits on sorted atrium secondaries.
         o, d = rays_sets["secondary"]
         rays = ci.pack_rays(o, d)
         cmin, cmax = scene.chunk_aabb_min, scene.chunk_aabb_max
@@ -635,8 +920,14 @@ def main():
                    sync_ms(lambda: ci.run_items_plain(*b2_args), 3)),
             "b4": (sync_ms(lambda: kernels.nearest(*b4_args), 20),
                    sync_ms(lambda: ci.nearest_box_ids_plain(*b4_args), 5)),
+            "b5": (sync_ms(lambda: kernels.dense(*b5_args), 10),
+                   sync_ms(lambda: ci.run_dense_plain(*b5_args), 1)),
+            "b6": (sync_ms(lambda: kernels.slots(*b6_args), 20),
+                   sync_ms(lambda: ci.run_slots_plain(*b6_args), 3)),
+            "b7": (sync_ms(lambda: kernels.ray_groups(*b7_args), 20),
+                   sync_ms(lambda: ci.ray_group_bools_plain(*b7_args), 5)),
         }
-        del scene, rays_sets, rays, cbits, b1_args, b2_args, b4_args
+        del scene, rays_sets, rays, cbits, brutes, b1_args, b2_args, b4_args, b5_args, b6_args, b7_args
         torch.cuda.empty_cache()
 
         # The lit-banner atrium: B3 on the light pdf of its real bounces.
@@ -667,15 +958,27 @@ def main():
                      config=RenderConfig(use_env_map=True, env_map_path=env,
                                          add_light_triangle=True))
         sort_rows = phase_sort_keys(path, main_row)
+        mode_rows = phase_modes_render(path, tmp, main_row)
+        phase_engine(path, tmp)
 
+    # Each kernel's launches on its own path: B1/B2 the main render, B3 the
+    # lit-banner render, B4 the "target" key, B5 the "dense" render, B6 the
+    # "twopass" render, B7 the "bins" render.
     launches = {"b1": main_row["launches_b1"], "b2": main_row["launches_b2"],
-                "b3": lit_row["launches_b3"], "b4": sort_rows["target"]["b4"]}
-    errs = {"b1": b1_err, "b2": b2_err, "b3": b3_err, "b4": b4_err}
+                "b3": lit_row["launches_b3"], "b4": sort_rows["target"]["b4"],
+                "b5": mode_rows["dense"]["launches_b5"],
+                "b6": mode_rows["twopass"]["launches_b6"],
+                "b7": mode_rows["bins"]["launches_b7"]}
+    errs = {"b1": b1_err, "b2": b2_err, "b3": b3_err, "b4": b4_err, "b5": b5_err,
+            "b6": b6_err, "b7": b7_err}
     table = [
         ("activity (B1)", "chunk_kernels.cu", "b1", 146),
         ("items (B2)", "chunk_kernels.cu", "b2", 819),
         ("light pdf (B3)", "light_sort_kernels.cu", "b3", 1493),
         ("nearest box (B4)", "light_sort_kernels.cu", "b4", 1673),
+        ("dense grid (B5)", "mode_kernels.cu", "b5", 727),
+        ("slot grid (B6)", "mode_kernels.cu", "b6", 761),
+        ("ray group bits (B7)", "mode_kernels.cu", "b7", 421),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"tpu_pathtracer_torch/csrc/{src}",

@@ -1,6 +1,6 @@
 """The port's whole render path on the CPU: renders vs the JAX package's on
-the same scene arrays, the Cornell golden, the CLI contract, and the
-configurations outside the ported slice."""
+the same scene arrays (default and non-default configurations), the Cornell
+golden, the CLI contract, and the refusal of unknown configuration values."""
 
 import dataclasses
 import os
@@ -29,17 +29,22 @@ torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cornell_64x64_4096spp.ppm")
 
 
-def _render_both(path, w, h, spp, seed=3):
-    """Render one file with both packages; the port's scene comes from the
-    JAX scene's arrays through the bridge.  Returns the two u8 images."""
+def _render_both(path, w, h, spp, seed=3, config=RenderConfig()):
+    """Render one file with both packages under ``config``; the port's scene
+    comes from the JAX scene's arrays through the bridge.  Returns the two
+    u8 images."""
     js = jax_parse(path, w / h)
     js = dataclasses.replace(js, camera=js.camera.with_dims(w, h))
     arrays, statics = jax_scene_arrays(js)
     ts = scene_from_arrays(arrays, {**statics, "width": w, "height": h})
-    want = np.asarray(jax_quantize(jnp.asarray(jax_render(js, spp=spp, seed=seed))))
+    want = np.asarray(jax_quantize(jnp.asarray(jax_render(js, spp=spp, seed=seed, config=config))))
     stats = {}
-    hdr = pt.render(ts, spp=spp, seed=seed, stats=stats)
-    assert np.isfinite(hdr).all() and stats["measured_rays"] > w * h * spp
+    hdr = pt.render(ts, spp=spp, seed=seed, config=config, stats=stats)
+    assert np.isfinite(hdr).all()
+    if config.compaction:  # only the persistent engine counts rays, as in JAX
+        assert stats["measured_rays"] > w * h * spp
+    else:
+        assert not stats
     got = quantize_u8(torch.from_numpy(hdr)).numpy()
     return want.astype(int), got.astype(int)
 
@@ -138,11 +143,28 @@ def test_torch_cli_device_and_slice(tmp_path, capsys, monkeypatch):
     ids=["scan_engine", "sobol_jitter", "lowdisc", "mode_twopass", "mode_dense", "cheap_recheck"],
 )
 def test_torch_render_rejects_unported_config(tmp_path, change):
+    """Each non-default engine, sampler and intersector setting renders
+    Cornell finite and matches the JAX render of the same configuration to
+    fp noise (Cornell takes the dense sweep, so the intersector settings
+    must leave it untouched)."""
+    path = make_cornell_gltf(str(tmp_path / "c" / "cornell.gltf"))
+    _assert_fp_noise(*_render_both(path, 8, 8, 4, config=dataclasses.replace(RenderConfig(), **change)))
+
+
+def test_torch_render_rejects_unknown_config(tmp_path):
+    """Unknown intersect mode, cheap_recheck, jitter and lowdisc values
+    raise ValueError before any work."""
     path = make_cornell_gltf(str(tmp_path / "c.gltf"))
     scene = parse_gltf_scene(path, 1.0)
     scene = dataclasses.replace(scene, camera=scene.camera.with_dims(8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render(scene, spp=1, config=dataclasses.replace(RenderConfig(), **change))
+    for change, match in (
+        ({"tuning": IntersectTuning(mode="item")}, "unknown intersect mode"),
+        ({"tuning": IntersectTuning(cheap_recheck=3)}, "unknown cheap_recheck"),
+        ({"jitter": "sobl"}, "unknown jitter"),
+        ({"lowdisc": "bogus"}, "unknown lowdisc"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            pt.render(scene, spp=1, config=dataclasses.replace(RenderConfig(), **change))
 
 
 def test_torch_render_retries_failed_chunk(tmp_path, monkeypatch):

@@ -1,4 +1,5 @@
-"""The port's counter-based threefry stream vs the JAX package's, bit for bit."""
+"""The port's counter-based threefry stream and Sobol camera jitter vs the JAX
+package's, bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -71,5 +72,17 @@ def test_torch_lane_uniforms_scalar_vector_agree():
 
 
 def test_torch_sobol_jitter_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trng.jitter_uniforms(0, 0, torch.arange(4, dtype=torch.int32), "sobol")
+    """jitter_uniforms("sobol") equals the JAX package's Owen-scrambled
+    Sobol jitter bit for bit (scalar and per-lane samples, seeds past
+    2^31); an unknown kind raises ValueError, as in JAX."""
+    pix = np.arange(0, 4096, 13, dtype=np.int32)
+    lanes = np.random.default_rng(4).integers(0, 70_000, size=pix.shape).astype(np.int32)
+    for seed in (0, 7, 2**31 + 5):
+        for sample in (0, 37, lanes):
+            want = np.asarray(jrng.jitter_uniforms(jax.random.key(seed), jnp.asarray(sample),
+                                                   jnp.asarray(pix), "sobol"))
+            got = trng.jitter_uniforms(seed, torch.as_tensor(sample), torch.from_numpy(pix),
+                                       "sobol").numpy()
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    with pytest.raises(ValueError, match="unknown jitter"):
+        trng.jitter_uniforms(0, 0, torch.from_numpy(pix), "sobl")

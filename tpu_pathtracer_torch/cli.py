@@ -8,7 +8,11 @@ writes a P6 PPM, and prints the ``RenderMetrics`` JSON on stderr.  Exits 1
 with a message on stderr for too few arguments or a runtime error.
 
 The device is CUDA; with no CUDA device the command exits 1 unless
-``TPU_PATHTRACER_TORCH_DEVICE=cpu`` opts in to rendering on the CPU.
+``TPU_PATHTRACER_TORCH_DEVICE=cpu`` opts in to rendering on the CPU.  The
+environment reaches the rest of ``RenderConfig``: ``TPU_PATHTRACER_JITTER``
+/ ``TPU_PATHTRACER_LOWDISC`` (``sobol``) and the intersector's ``TPU_PT_*``
+knobs (``TPU_PT_INTERSECT`` items | twopass | dense | bins,
+``TPU_PT_CHEAP_RECHECK`` 0 | 1 | 2, ``TPU_PT_BINS_CAP``).
 Homebrew ``.txt`` scenes are a later slice.
 """
 
@@ -71,7 +75,14 @@ def render_scene_file(
     config: RenderConfig = DEFAULT_CONFIG,
 ):
     """Load + render a glTF scene file with seed 0 -> (HDR numpy image,
-    RenderMetrics)."""
+    RenderMetrics).  As in the JAX CLI, ``TPU_PATHTRACER_JITTER`` and
+    ``TPU_PATHTRACER_LOWDISC`` override ``config.jitter`` and
+    ``config.lowdisc`` (the 5-argument contract has no flag slots; the
+    intersector's knobs come through ``TPU_PT_*``)."""
+    for env, field in (("TPU_PATHTRACER_JITTER", "jitter"), ("TPU_PATHTRACER_LOWDISC", "lowdisc")):
+        value = os.environ.get(env)
+        if value:
+            config = dataclasses.replace(config, **{field: value})
     if not (scene_path.endswith(".gltf") or scene_path.endswith(".glb")):
         if not os.path.exists(scene_path):
             raise FileNotFoundError(2, "No such file or directory", scene_path)

@@ -44,6 +44,11 @@ LIBRARIES = {
         "tpt_light_pdf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
         "tpt_nearest": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
     },
+    "mode_kernels": {
+        "tpt_dense": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4,
+        "tpt_slots": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,
+        "tpt_ray_groups": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
+    },
 }
 
 
@@ -238,3 +243,92 @@ def nearest(rays, box_min, box_max, min_dst):
         )
     _raise_on(rc, "nearest")
     return t_out, id_out
+
+
+def _check_key_bound(min_dst, n_keys, name):
+    """B5 and B6 order candidates by 64-bit keys whose high word is the bits
+    of t: that orders like the floats only for t > 0 (t >= min_dst), and
+    the low word must hold every triangle id or test-order index."""
+    if not min_dst > 0 or n_keys >= 2**31:
+        raise ValueError(f"{name}: needs min_dst > 0 and < 2^31 keys (min_dst={min_dst}, keys={n_keys})")
+
+
+def dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
+    """Launch B5 (contract: ``ops.chunk_intersect.run_dense_plain``)."""
+    dev = rays.device
+    r = rays.shape[0]
+    t_tiles, nwords = bits.shape
+    c, _, cw = chunk_woop.shape
+    ray_tile = r // t_tiles if t_tiles else 0
+    if t_tiles == 0 or r % t_tiles or ray_tile > 1024 or c == 0 or nwords * 32 < c:
+        raise ValueError(f"dense: R={r} T={t_tiles} chunks={c} words={nwords}")
+    _check_key_bound(min_dst, c * cw, "dense")
+    _check(rays, "rays", torch.float32, (r, 8), dev)
+    _check(tmin0, "tmin0", torch.float32, (r,), dev)
+    _check(tidx0, "tidx0", torch.int32, (r,), dev)
+    _check(chunk_woop, "chunk_woop", torch.float32, (c, 12, cw), dev)
+    _check(bits, "bits", torch.int32, (t_tiles, nwords), dev)
+    keys = torch.empty((r,), dtype=torch.int64, device=dev)
+    t_out = torch.empty((r,), dtype=torch.float32, device=dev)
+    tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("mode_kernels").tpt_dense(
+            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(chunk_woop), _ptr(bits), r, t_tiles,
+            c, nwords, cw, float(min_dst), _ptr(keys), _ptr(t_out), _ptr(tri_out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "dense")
+    return t_out, tri_out
+
+
+def slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
+    """Launch B6 (contract: ``ops.chunk_intersect.run_slots_plain``)."""
+    dev = rays.device
+    r = rays.shape[0]
+    t_tiles, cap = idx.shape
+    n_words = masks.shape[2]
+    cpad, _, cw = chunk_woop.shape
+    ray_tile = r // t_tiles if t_tiles else 0
+    if (t_tiles == 0 or r % t_tiles or ray_tile > 1024 or ray_tile % n_sub
+            or cpad % group or n_words * 4 < group):
+        raise ValueError(
+            f"slots: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words}"
+        )
+    _check_key_bound(min_dst, cap * group * cw, "slots")
+    _check(rays, "rays", torch.float32, (r, 8), dev)
+    _check(tmin0, "tmin0", torch.float32, (r,), dev)
+    _check(tidx0, "tidx0", torch.int32, (r,), dev)
+    _check(chunk_woop, "chunk_woop", torch.float32, (cpad, 12, cw), dev)
+    _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
+    _check(counts, "counts", torch.int32, (t_tiles,), dev)
+    _check(masks, "masks", torch.int32, (t_tiles, cap, n_words), dev)
+    keys = torch.empty((r,), dtype=torch.int64, device=dev)
+    t_out = torch.empty((r,), dtype=torch.float32, device=dev)
+    tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("mode_kernels").tpt_slots(
+            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(chunk_woop), _ptr(idx), _ptr(counts),
+            _ptr(masks), r, t_tiles, cap, n_words, group, n_sub, cw, float(min_dst),
+            _ptr(keys), _ptr(t_out), _ptr(tri_out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "slots")
+    return t_out, tri_out
+
+
+def ray_groups(rays, cmin, cmax, min_dst, group):
+    """Launch B7 (contract: ``ops.chunk_intersect.ray_group_bools_plain``)."""
+    dev = rays.device
+    r, c = rays.shape[0], cmin.shape[0]
+    if r == 0 or c == 0 or c % 512 or not 1 <= group <= 32 or 512 % group:
+        raise ValueError(f"ray_groups: R={r} chunks={c} group={group}")
+    _check(rays, "rays", torch.float32, (r, 8), dev)
+    _check(cmin, "cmin", torch.float32, (c, 3), dev)
+    _check(cmax, "cmax", torch.float32, (c, 3), dev)
+    out = torch.empty((c // group, r), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("mode_kernels").tpt_ray_groups(
+            _ptr(rays), _ptr(cmin), _ptr(cmax), r, c // group, group, float(min_dst),
+            _ptr(out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "ray_groups")
+    return out

@@ -1,18 +1,20 @@
-"""Persistent-wavefront Monte-Carlo path tracer over triangle scenes (port of
+"""Wavefront Monte-Carlo path tracer over triangle scenes (port of
 ``tpu_pathtracer/models/pathtracer.py``).
 
 One sample of one pixel follows the reference estimator bounce for bounce
 (src/raytracer.h:512-627), with every branch of ``shade`` as masked selects
-over an R-lane wavefront.  The engine is the compaction one: dead lanes
-refill with fresh (pixel, sample) primaries every iteration (path
-regeneration), large scenes sort the wavefront by a coherence key before
-each bounce, and per-lane draws are the counter-based (seed, pixel, sample,
-depth) stream, so the estimator is the JAX package's draw for draw; only
-per-pixel summation order (and the intersector's fp rounding) differ.
+over an R-lane wavefront.  Two engines, as in the JAX package: the
+persistent one (``compaction=True``, the default) refills dead lanes with
+fresh (pixel, sample) primaries every iteration (path regeneration); the
+scan one (``compaction=False``) traces one sample of every lane through
+``ray_depth`` bounces.  Large scenes sort the wavefront by a coherence key
+before each bounce, and per-lane draws are the counter-based (seed, pixel,
+sample, depth) stream, so both engines are the JAX package's estimator
+draw for draw; only per-pixel summation order (and the intersector's fp
+rounding) differ.
 
-The loop runs eagerly: one host read per iteration decides whether work
-remains.  Configurations outside the port so far raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The loops run eagerly: one host read per iteration decides whether work
+remains.  Unknown configuration values raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from tpu_pathtracer.config import IntersectTuning, RenderConfig
 from ..ops import bsdf, sampling, texture
 from ..ops.chunk_intersect import (
     RAY_TILE,
+    check_tuning,
     closest_hit_chunks,
     group_boxes,
     light_pdf_sum_chunks,
@@ -37,7 +40,13 @@ from ..ops.chunk_intersect import (
     scene_bounds,
 )
 from ..ops.intersect import Hit, closest_hit, light_pdf_sum, light_pdf_sum_flat
-from ..ops.rng import jitter_uniforms, lane_uniforms
+from ..ops.rng import (
+    SOBOL_TAG_LIGHT,
+    SOBOL_TAG_VNDF,
+    jitter_uniforms,
+    lane_uniforms,
+    sobol_owen_pair,
+)
 from ..ops.vecmath import cross, dot, frame_apply, length2, normalize, where3
 from ..scene.types import Camera, TriangleScene
 
@@ -55,33 +64,28 @@ def _check_sort_key(key: str) -> None:
 
 
 def check_config(config: RenderConfig) -> None:
-    """Raise for configurations the port does not run yet (never ignore
-    one) and for unknown values."""
-    if not config.compaction:
-        raise NotImplementedError(
-            "compaction=False (the scan engine) is not ported (ROADMAP: next "
-            "slices, engine and config parity)"
-        )
-    if config.jitter != "uniform" or config.lowdisc != "off":
-        raise NotImplementedError(
-            "Sobol jitter / lowdisc are not ported (ROADMAP: next slices, engine "
-            "and config parity)"
-        )
+    """Raise ``ValueError`` for a configuration value no engine knows (never
+    ignore one)."""
+    if config.jitter not in ("uniform", "sobol"):
+        raise ValueError(f"unknown jitter kind {config.jitter!r}: expected uniform | sobol")
+    if config.lowdisc not in ("off", "sobol"):
+        raise ValueError(f"unknown lowdisc {config.lowdisc!r}: expected off | sobol")
     _check_sort_key(config.sort_key)
-    tuning = config.tuning.resolve()
-    if tuning.mode not in ("items", "twopass", "dense", "bins"):
-        raise ValueError(f"unknown intersect mode {tuning.mode!r}")
-    if tuning.mode != "items" or tuning.cheap_recheck != 0:
-        raise NotImplementedError(
-            f"intersect mode {tuning.mode!r} / cheap_recheck "
-            f"{tuning.cheap_recheck}: only 'items' with the full recheck is "
-            "ported (ROADMAP Queue B: B5 dense, B6 twopass, B7 bins)"
-        )
+    check_tuning(config.tuning.resolve())
 
 
-def bounce_draws(seed: int, sample, depth, pixel: torch.Tensor) -> torch.Tensor:
-    """[_DRAWS, R] per-bounce estimator draws (lowdisc "off")."""
-    return lane_uniforms(seed, sample, depth, pixel, _DRAWS)
+def bounce_draws(seed: int, sample, depth, pixel: torch.Tensor,
+                 config: RenderConfig) -> torch.Tensor:
+    """[_DRAWS, R] per-bounce estimator draws.  ``lowdisc="sobol"`` replaces
+    the VNDF (2, 3) and light-point (8, 9) pairs by per-(pixel, depth)
+    Owen-scrambled Sobol points over the sample index."""
+    draws = lane_uniforms(seed, sample, depth, pixel, _DRAWS)
+    if config.lowdisc == "sobol":
+        draws[2:4] = sobol_owen_pair(seed, sample, depth, pixel, SOBOL_TAG_VNDF)
+        draws[8:10] = sobol_owen_pair(seed, sample, depth, pixel, SOBOL_TAG_LIGHT)
+    elif config.lowdisc != "off":
+        raise ValueError(f"unknown lowdisc {config.lowdisc!r}: expected off | sobol")
+    return draws
 
 
 def gen_rays(camera: Camera, pixel_ids: torch.Tensor, offsets: torch.Tensor):
@@ -337,7 +341,8 @@ def persistent_accum(
         slot = (w % pool_pix).to(torch.int32)
         s = (w // pool_pix).to(torch.int32)
         pids = chunk_start + slot
-        o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, sample_start + s, pids))
+        o, d = gen_rays(scene.camera, pids,
+                        jitter_uniforms(seed, sample_start + s, pids, config.jitter))
         return o, d, slot, s
 
     iota = torch.arange(n_rays, dtype=torch.int64, device=dev)
@@ -360,7 +365,7 @@ def persistent_accum(
             alive, active, slot = alive[perm], active[perm], slot[perm]
             sample, depth, hint = sample[perm], depth[perm], hint[perm]
         n_bounce = n_bounce + alive.sum()
-        draws = bounce_draws(seed, sample_start + sample, depth, chunk_start + slot)
+        draws = bounce_draws(seed, sample_start + sample, depth, chunk_start + slot, config)
         o, d, throughput, radiance, alive2, hint = bounce_step(
             scene, config, o, d, throughput, radiance, alive, draws
         )
@@ -413,9 +418,63 @@ def render_chunk_persistent(scene, chunk_start: int, seed: int, sample_start: in
     return acc / spp, n_bounce
 
 
+def trace(scene: TriangleScene, origin, direction, seed: int, pixel_ids: torch.Tensor,
+          config: RenderConfig, sample=0) -> torch.Tensor:
+    """The scan engine's bounce loop: one full path per input ray, over at
+    most ``ray_depth`` wavefront bounces, stopping early once every ray is
+    dead (a host read per bounce).  Returns [R, 3] radiance in input order,
+    not NaN-sanitized."""
+    r = origin.shape[0]
+    dev = origin.device
+    sort_rays = scene.capacity > 1024 and r >= 2048
+    key_fn = _make_sort_key(scene, config, r) if sort_rays else None
+    far = torch.full((3,), 1e30, device=dev)
+    o, d = origin, direction
+    throughput = torch.ones_like(o)
+    radiance = torch.zeros_like(o)
+    alive = torch.isfinite(o[:, 0])
+    pids = pixel_ids
+    slot = torch.arange(r, dtype=torch.int32, device=dev)  # input position of each lane
+    hint = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    for depth in range(scene.ray_depth):
+        if not bool(alive.any()):
+            break
+        if sort_rays:
+            perm = torch.argsort(key_fn(o, d, alive, hint), stable=True)
+            o, d, throughput, radiance = o[perm], d[perm], throughput[perm], radiance[perm]
+            alive, pids, slot, hint = alive[perm], pids[perm], slot[perm], hint[perm]
+        draws = bounce_draws(seed, sample, depth, pids, config)
+        o, d, throughput, radiance, alive, hint = bounce_step(
+            scene, config, o, d, throughput, radiance, alive, draws
+        )
+        if sort_rays:
+            # Park dead rays far away so their tiles activate no chunk.
+            o = where3(alive, o, far)
+    # Depth exhaustion: the reference's deepest call returns {0,0,0}, which
+    # a NaN throughput chain turns into NaN (src/raytracer.h:596-598).
+    radiance = radiance + torch.where(alive[:, None], throughput * 0.0, torch.zeros_like(radiance))
+    if sort_rays:
+        radiance = radiance[torch.argsort(slot)]  # undo the composed permutation
+    return radiance
+
+
+def render_chunk(scene: TriangleScene, chunk_start: int, seed: int, sample_start: int,
+                 n_rays: int, spp: int, config: RenderConfig) -> torch.Tensor:
+    """The scan engine: mean radiance over ``spp`` samples of the ``n_rays``
+    pixels from ``chunk_start`` (render_pixel, src/raytracer.h:618-627)."""
+    pids = chunk_start + torch.arange(n_rays, dtype=torch.int32, device=scene.device)
+    acc = torch.zeros((n_rays, 3), device=scene.device)
+    for s in range(spp):
+        gs = sample_start + s
+        o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, gs, pids, config.jitter))
+        acc = acc + sanitize_nans(trace(scene, o, d, seed, pids, config, sample=gs))
+    return acc / spp
+
+
 def pick_chunk(config: RenderConfig, npix: int) -> int:
-    """Lane count: bounded by config, rounded up to the ray tile (padding
-    lanes are never spawned: the tail chunk passes its pixel count)."""
+    """Lane count: bounded by config, rounded up to the ray tile (the
+    persistent engine never spawns the padding lanes: the tail chunk passes
+    its pixel count; the scan engine renders them and drops them)."""
     chunk = min(config.rays_per_batch, npix)
     return chunk + ((-chunk) % RAY_TILE)
 
@@ -424,12 +483,14 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
            progress: bool = False, stats: dict | None = None) -> np.ndarray:
     """Full-frame render -> host numpy [H, W, 3] float32 HDR radiance.
 
-    Pixel chunks of ``pick_chunk`` lanes (or the whole frame as one pool
-    under ``config.frame_pool``) run ``spp_per_pass`` samples per persistent
-    call.  A chunk whose device execution fails is recomputed, up to
-    ``config.failure_retries`` times: the counter RNG makes a chunk a pure
-    function of (scene, seed, range).  ``stats["measured_rays"]`` receives
-    the number of rays traced (live lanes entering each bounce)."""
+    Pixel chunks of ``pick_chunk`` lanes (or, with the persistent engine,
+    the whole frame as one pool under ``config.frame_pool``) run
+    ``spp_per_pass`` samples per engine call.  A chunk whose device
+    execution fails is recomputed, up to ``config.failure_retries`` times:
+    the counter RNG makes a chunk a pure function of (scene, seed, range).
+    With the persistent engine ``stats["measured_rays"]`` receives the
+    number of rays traced (live lanes entering each bounce); the scan engine
+    leaves ``stats`` untouched, as in the JAX package."""
     config = config or RenderConfig()
     check_config(config)
     h, w = scene.camera.height, scene.camera.width
@@ -440,7 +501,7 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     spp = max(int(spp), 1)
     chunk = pick_chunk(config, npix)
     pass_spp = max(1, min(config.spp_per_pass, spp))
-    frame_pool = config.frame_pool and npix > chunk
+    frame_pool = config.frame_pool and config.compaction and npix > chunk
     pix_step = npix if frame_pool else chunk
     n_tiles = -(-npix // pix_step) * -(-spp // pass_spp)
     done_tiles = 0
@@ -454,16 +515,19 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                 print(f"{done_tiles}/{n_tiles}     \r", end="", file=sys.stderr)
                 done_tiles += 1
             todo = min(pass_spp, spp - s0)
-            if frame_pool:
-                pc, ar = n, n
+            if not config.compaction:
+                rad = render_chunk(scene, start, seed, s0, chunk, todo, config)
             else:
-                pc, ar = (None if n == chunk else n), None
-            rad, nb = render_chunk_persistent(
-                scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar
-            )
+                if frame_pool:
+                    pc, ar = n, n
+                else:
+                    pc, ar = (None if n == chunk else n), None
+                rad, nb = render_chunk_persistent(
+                    scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar
+                )
+                rays += int(nb)
             contrib = rad * float(todo)
             acc = contrib if acc is None else acc + contrib
-            rays += int(nb)
         return acc[:n].cpu().numpy(), rays
 
     out = np.zeros((npix, 3), dtype=np.float32)
@@ -474,8 +538,6 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
             try:
                 host, rays = run(start, n)
                 break
-            except NotImplementedError:
-                raise
             except RuntimeError as err:  # a failed device execution
                 if attempt == config.failure_retries:
                     raise
@@ -483,6 +545,6 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                       f"({attempt + 1}/{config.failure_retries})", file=sys.stderr)
         out[start:start + n] = host / spp
         measured += rays
-    if stats is not None:
+    if stats is not None and config.compaction:
         stats["measured_rays"] = measured
     return out.reshape(h, w, 3)

@@ -3,7 +3,8 @@
 
 Triangles come spatially ordered in chunks of 128 (``scene.chunk_woop``,
 AABBs in ``scene.chunk_aabb_min/max``).  ``closest_hit_chunks`` runs the
-JAX package's default mode "items" cascade:
+intersector mode ``tuning.mode`` (``TPU_PT_INTERSECT``).  The default,
+"items", is the cascade:
 
   super      one AABB per 512-chunk column block gates whole activity
              columns per ray tile (engaged past ``tuning.super_min``
@@ -20,7 +21,20 @@ JAX package's default mode "items" cascade:
 
 Every pass min-accumulates (t, triangle) with a strict ``<`` from the
 previous pass's result, so retests are idempotent and the result is exactly
-the closest hit over the union of tested chunks.
+the closest hit over the union of tested chunks.  ``cheap_recheck``
+(``TPU_PT_CHEAP_RECHECK``) 1 replaces every recheck, and 2 every recheck
+but the last, by a comparison of the initial pass's sub-tile entry minima
+with each sub-tile's largest best t (plain tensor code, looser, exact all
+the same).  The other modes:
+
+  twopass    the same cascade with the slot grid (kernel B6: one block per
+             (tile, slot)) in place of B2;
+  dense      every (tile, chunk) pair whose activity bit is set, in one
+             bit-gated grid — kernel B5;
+  bins       no tile prepass: per-ray group bits (kernel B7), group-major
+             binned ray blocks, one B2 pass over them, scatter-min per ray;
+             past ``bins_cap`` x R binned rows (``TPU_PT_BINS_CAP``) B5 runs
+             instead on tile bits derived from the same per-ray bits.
 
 The same machinery serves two more consumers: ``light_pdf_sum_chunks``, the
 all-hits light pdf of scenes with more than 512 lights (B1 on the light
@@ -30,16 +44,18 @@ which the "target" wavefront sort key orders by.  The other sort keys
 ("hint", "dirhint", "cell") are plain tensor code at the end.
 
 The kernels are hand-written CUDA (``csrc/chunk_kernels.cu`` for B1/B2,
-``csrc/light_sort_kernels.cu`` for B3/B4, bound in ``kernels.py``).  Each
-wrapper here has a plain-torch twin with the same signature; a CPU tensor
-goes to the twin, a CUDA tensor to the kernel, and anything else raises.
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+``csrc/light_sort_kernels.cu`` for B3/B4, ``csrc/mode_kernels.cu`` for
+B5-B7, bound in ``kernels.py``).  Each wrapper here has a plain-torch twin
+with the same signature; a CPU tensor goes to the twin, a CUDA tensor to
+the kernel, and anything else raises.  Each wrapper counts its kernel
+launches in its ``launches`` attribute.
 
-Not ported: the TPU-only modes ("dense", "twopass", "bins"), the cheap
-recheck forms, the SMEM-budget caps (``max_cap``, ``light_items``) and what
-they forced: the iterating residual and the light pdf's item windows with
-their ``sum0`` chaining and visited-tile patch — on the GPU the residual is
-always one pass and a block reads its tile's whole worklist.
+Not ported: the SMEM-budget machinery of the TPU's 1 MB scalar memory
+(``max_cap``, ``light_items``, the merged prefetch rows) and what it forced:
+the iterating residual, the count-bucketed residual caps of "twopass", and
+the light pdf's item windows with their ``sum0`` chaining and visited-tile
+patch — on the GPU the residual is always one pass and a block reads its
+tile's whole worklist.
 """
 
 from __future__ import annotations
@@ -232,6 +248,19 @@ def _contract_d(d, w, r0):
     return acc + d[..., 2:3] * w[:, None, r0 + 2]
 
 
+def _chunk_first_min(o, d, w, min_dst: float):
+    """Woop test of [T, RT] rays against one chunk per tile (w [T, 12, CW]):
+    per ray the first minimum t over the chunk's triangles (inf if none)
+    and its lane."""
+    p0, p1, p2 = (_contract_o(o, w, k) for k in (0, 4, 8))
+    q0, q1, q2 = (_contract_d(d, w, k) for k in (0, 4, 8))
+    tt = -p2 / q2
+    beta = p0 + tt * q0
+    gamma = p1 + tt * q1
+    ok = (beta >= 0) & (gamma >= 0) & (beta + gamma <= 1) & (tt >= min_dst)
+    return torch.where(ok, tt, torch.full_like(tt, _INF)).min(dim=-1)
+
+
 def run_items_plain(
     rays: torch.Tensor,  # [R, 8]
     tmin0: torch.Tensor,  # [R] f32 best t so far
@@ -266,14 +295,7 @@ def run_items_plain(
             mask = (masks[:, s, g // 4] >> (8 * (g % 4))) & 0xFF  # [T]
             ray_on = live[:, None] & (((mask[:, None] >> sub_of_ray[None, :]) & 1) > 0)
             chunk = chunks0 + g
-            w = chunk_woop[chunk]  # [T, 12, CW]
-            p0, p1, p2 = (_contract_o(o, w, k) for k in (0, 4, 8))
-            q0, q1, q2 = (_contract_d(d, w, k) for k in (0, 4, 8))
-            tt = -p2 / q2
-            beta = p0 + tt * q0
-            gamma = p1 + tt * q1
-            ok = (beta >= 0) & (gamma >= 0) & (beta + gamma <= 1) & (tt >= min_dst)
-            cmin_t, carg = torch.where(ok, tt, torch.full_like(tt, _INF)).min(dim=-1)
+            cmin_t, carg = _chunk_first_min(o, d, chunk_woop[chunk], min_dst)
             better = ray_on & (cmin_t < t)
             t = torch.where(better, cmin_t, t)
             tri = torch.where(better, (chunk[:, None] * cw + carg).to(torch.int32), tri)
@@ -302,7 +324,142 @@ run_items.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Cascade glue (plain tensor code around the two kernels)
+# Kernel B5: bit-gated dense grid (replaces pallas_intersect._kernel_dense)
+# --------------------------------------------------------------------------
+
+
+def run_dense_plain(
+    rays: torch.Tensor,  # [R, 8]
+    tmin0: torch.Tensor,  # [R] f32 best t so far
+    tidx0: torch.Tensor,  # [R] int32 its triangle
+    chunk_woop: torch.Tensor,  # [C, 12, CW]
+    bits: torch.Tensor,  # [T, ceil(C/32)] int32: bit j%32 of word j//32 = chunk j active
+    min_dst: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the B5 kernel: for every tile and every chunk j whose
+    activity bit is set, the Woop test of the tile's rays against the
+    chunk, min-accumulated with a strict < over (tmin0, tidx0), walking the
+    chunks in ascending order; so on ties the smallest triangle id among
+    equal t wins.  Returns (t [R], tri [R])."""
+    t_tiles = bits.shape[0]
+    r = rays.shape[0]
+    rt = r // t_tiles
+    c, _, cw = chunk_woop.shape
+    o = rays[:, 0:3].reshape(t_tiles, rt, 3)
+    d = rays[:, 4:7].reshape(t_tiles, rt, 3)
+    t = tmin0.reshape(t_tiles, rt).clone()
+    tri = tidx0.reshape(t_tiles, rt).clone()
+    shifts = torch.arange(32, dtype=torch.int64, device=rays.device)
+    act = (((bits.to(torch.int64)[:, :, None] >> shifts) & 1) > 0).reshape(t_tiles, -1)[:, :c]
+    for j in act.any(dim=0).nonzero()[:, 0].tolist():  # chunks no tile needs cost nothing
+        cmin_t, carg = _chunk_first_min(o, d, chunk_woop[j:j + 1], min_dst)
+        better = act[:, j:j + 1] & (cmin_t < t)
+        t = torch.where(better, cmin_t, t)
+        tri = torch.where(better, (j * cw + carg).to(torch.int32), tri)
+    return t.reshape(r), tri.reshape(r)
+
+
+def run_dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
+    """B5 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors (see ``run_dense_plain`` for the contract)."""
+    if rays.is_cuda:
+        from .. import kernels
+
+        out = kernels.dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
+        run_dense.launches += 1
+        return out
+    if rays.device.type == "cpu":
+        return run_dense_plain(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
+    raise RuntimeError(f"run_dense: no kernel for device {rays.device}")
+
+
+run_dense.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel B6: per-tile slot grid of Woop pair tests (replaces _kernel_pass)
+# --------------------------------------------------------------------------
+
+
+# Plain twin of the B6 kernel.  The slot grid computes the function B2
+# computes (tile i, slots s < counts[i] in slot order, strict <), so its twin
+# is B2's; the kernels differ in how the card runs it (one block per (tile,
+# slot) against one per tile).
+run_slots_plain = run_items_plain
+
+
+def run_slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
+    """B6 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors (mode "twopass")."""
+    if rays.is_cuda:
+        from .. import kernels
+
+        out = kernels.slots(
+            rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
+        )
+        run_slots.launches += 1
+        return out
+    if rays.device.type == "cpu":
+        return run_slots_plain(
+            rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
+        )
+    raise RuntimeError(f"run_slots: no kernel for device {rays.device}")
+
+
+run_slots.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel B7: per-ray group bits (replaces pallas_intersect._ray_group_kernel)
+# --------------------------------------------------------------------------
+
+
+def ray_group_bools_plain(
+    rays: torch.Tensor,  # [R, 8]
+    cmin: torch.Tensor,  # [CPAD, 3], CPAD a multiple of ACT_COLS (NaN rows never match)
+    cmax: torch.Tensor,  # [CPAD, 3]
+    min_dst: float,
+    group: int,
+) -> torch.Tensor:
+    """Plain twin of the B7 kernel: [CPAD // group, R] int32 (group-major),
+    1 where the ray's slab test passes (t_lo <= t_hi, t_hi >= min_dst; no
+    far bound) for any of the group's ``group`` chunk AABBs."""
+    r = rays.shape[0]
+    o = rays[:, 0:3]
+    inv = _inv_dir(rays[:, 4:7])
+    gpb = ACT_COLS // group
+    out = torch.empty((cmin.shape[0] // group, r), dtype=torch.int32, device=rays.device)
+    for b, c0 in enumerate(range(0, cmin.shape[0], ACT_COLS)):
+        t_lo, t_hi = _slab(o, inv, cmin[c0:c0 + ACT_COLS], cmax[c0:c0 + ACT_COLS])
+        hit = (t_lo <= t_hi) & (t_hi >= min_dst)
+        out[b * gpb:(b + 1) * gpb] = hit.reshape(r, gpb, group).any(dim=2).T.to(torch.int32)
+    return out
+
+
+def ray_group_bools(rays, chunk_min, chunk_max, min_dst: float, group: int = GROUP):
+    """Per-ray group bits [CPAD // group, R] int32: B7 for CUDA tensors, its
+    twin for CPU tensors, on the chunks NaN-padded to a multiple of
+    ``ACT_COLS`` as the JAX package pads them (callers keep the first
+    ceil(C / group) rows)."""
+    cpad = -(-chunk_min.shape[0] // ACT_COLS) * ACT_COLS
+    cmin = _nan_pad(chunk_min, cpad).contiguous()
+    cmax = _nan_pad(chunk_max, cpad).contiguous()
+    if rays.is_cuda:
+        from .. import kernels
+
+        out = kernels.ray_groups(rays, cmin, cmax, min_dst, group)
+        ray_group_bools.launches += 1
+        return out
+    if rays.device.type == "cpu":
+        return ray_group_bools_plain(rays, cmin, cmax, min_dst, group)
+    raise RuntimeError(f"ray_group_bools: no kernel for device {rays.device}")
+
+
+ray_group_bools.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Cascade glue (plain tensor code around the kernels)
 # --------------------------------------------------------------------------
 
 
@@ -361,6 +518,124 @@ def _live_block_bits(live: torch.Tensor, group: int) -> torch.Tensor:
     return _bitpack(lc.reshape(t_tiles, -1, ACT_COLS).any(dim=2))
 
 
+def _bins_worklist(gb: torch.Tensor, br: int, p_cap: int):
+    """Group-major binned ray list from the [CG, R] per-ray group bits: each
+    pierced (group, ray) pair is one row, and each group's segment is padded
+    to ``br``-row blocks.  Returns (r_pad [P_pad] int32 ray per row, -1 =
+    padding; block_group [NB] int32 group of each block; n_blocks [] int32
+    used blocks; overflow [] bool: more than ``p_cap`` pairs, or padded rows
+    past the capacity)."""
+    cg, r = gb.shape
+    dev = gb.device
+    counts = gb.sum(dim=1, dtype=torch.int64)
+    fid = torch.nonzero(gb.reshape(-1) > 0)[:p_cap, 0]
+    fid = torch.cat([fid, torch.full((p_cap - fid.shape[0],), cg * r, device=dev)])
+    valid = fid < cg * r
+    g = torch.where(valid, fid // r, cg - 1)
+    rid = (fid % r).to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    seg_start = torch.cat([zero, torch.cumsum(counts, 0)])
+    pad_start = torch.cat([zero, torch.cumsum((counts + br - 1) // br, 0)]) * br
+    p_pad_cap = p_cap + cg * (br - 1)  # worst padding: every group partial
+    nb_cap = p_pad_cap // br + 1
+    p_pad_cap = nb_cap * br
+    dst = pad_start[g] + (torch.arange(p_cap, device=dev) - seg_start[g])
+    dst = torch.where(valid, torch.clamp(dst, 0, p_pad_cap), p_pad_cap)
+    # One spare row past the end takes the dropped writes.
+    r_pad = torch.full((p_pad_cap + 1,), -1, dtype=torch.int32, device=dev)
+    r_pad[dst] = rid
+    boundaries = torch.where(counts > 0, pad_start[:cg] // br, nb_cap).clamp_max(nb_cap)
+    bg = torch.full((nb_cap + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, boundaries, torch.arange(cg, device=dev), "amax"
+    )
+    bg = torch.cummax(bg[:nb_cap], 0).values
+    overflow = (seg_start[cg] > p_cap) | (pad_start[cg] > p_pad_cap)
+    n_blocks = torch.clamp_max(pad_start[cg] // br, nb_cap).to(torch.int32)
+    return r_pad[:p_pad_cap], bg.clamp_min(0).to(torch.int32), n_blocks, overflow
+
+
+def _closest_hit_bins(rays, chunk_woop, chunk_min, chunk_max, min_dst: float, ray_tile: int,
+                      group: int, bins_cap: int):
+    """Mode "bins": per-ray group bits (B7) -> group-major binned ray blocks
+    -> one B2 pass whose tiles are the binned blocks (one group each, every
+    sub-tile on) -> scatter-min per ray, ties to the smallest triangle among
+    exactly equal t (the dense sweep's order).  When the pairs overflow
+    ``bins_cap`` x R rows, B5 runs instead on tile bits derived from the same
+    per-ray bits; the flag is read on the host (one sync per call).  Returns
+    (t [R], tri [R])."""
+    r = rays.shape[0]
+    dev = rays.device
+    t_tiles = r // ray_tile
+    cg = chunk_woop.shape[0] // group
+    gb = ray_group_bools(rays, chunk_min, chunk_max, min_dst, group)[:cg]
+    r_pad, bgrp, n_blocks, overflow = _bins_worklist(gb, ray_tile, r * bins_cap)
+    if bool(overflow):
+        act = (gb > 0).reshape(cg, t_tiles, ray_tile).any(dim=2).T  # [T, CG]
+        return run_dense(
+            rays, torch.full((r,), _INF, device=dev), torch.zeros((r,), dtype=torch.int32, device=dev),
+            chunk_woop, _bitpack(act.repeat_interleave(group, dim=1)), min_dst,
+        )
+    live = r_pad >= 0
+    rb = rays[torch.clamp_min(r_pad, 0).long()]
+    # Padding rows: origin parked far away (the dead-lane convention).
+    rb = torch.cat([torch.where(live[:, None], rb[:, 0:4], torch.full_like(rb[:, 0:4], 1e30)),
+                    rb[:, 4:8]], dim=1)
+    p_pad = r_pad.shape[0]
+    nb = p_pad // ray_tile
+    counts = (torch.arange(nb, device=dev) < n_blocks).to(torch.int32)
+    masks = torch.full((nb, 1, -(-group // 4)), -1, dtype=torch.int32, device=dev)
+    t_rows, i_rows = run_items(
+        rb.contiguous(), torch.full((p_pad,), _INF, device=dev),
+        torch.zeros((p_pad,), dtype=torch.int32, device=dev), chunk_woop,
+        bgrp[:, None].contiguous(), counts, masks, min_dst, group, 1,
+    )
+    rid = torch.where(live, r_pad, r).long()
+    t_flat = torch.where(live, t_rows, torch.full_like(t_rows, _INF))
+    tb = torch.full((r + 1,), _INF, device=dev).scatter_reduce(0, rid, t_flat, "amin")
+    won = live & torch.isfinite(t_flat) & (t_flat == tb[rid])
+    trib = torch.full((r + 1,), 1 << 30, dtype=torch.int32, device=dev).scatter_reduce(
+        0, torch.where(won, rid, r), i_rows, "amin"
+    )
+    tb = tb[:r]
+    return tb, torch.where(torch.isfinite(tb), trib[:r], torch.zeros_like(trib[:r]))
+
+
+def _winner(rays, woop_rows, t_best, tri) -> Hit:
+    """Hit record of the closest hits: winner barycentrics from one [R, 12]
+    row gather (rows[t, 4j+k])."""
+    r = rays.shape[0]
+    hit = torch.isfinite(t_best)
+    tri_safe = torch.where(hit, tri, torch.zeros_like(tri))
+    w = woop_rows[tri_safe.long()].reshape(r, 3, 4).transpose(1, 2)
+    _, beta, gamma = winner_barycentrics(rays[:, 0:4], rays[:, 4:8], w)
+    zero = torch.zeros_like(beta)
+    return Hit(
+        t=torch.where(hit, t_best, torch.full_like(t_best, _INF)),
+        tri=tri_safe,
+        beta=torch.where(hit, beta, zero),
+        gamma=torch.where(hit, gamma, zero),
+        hit=hit,
+    )
+
+
+MODES = ("items", "twopass", "dense", "bins")
+
+
+def check_tuning(tuning: IntersectTuning) -> None:
+    """Raise ``ValueError`` for an intersect mode or cheap_recheck form that
+    no code path runs (a typo would otherwise time the wrong variant)."""
+    if tuning.mode not in MODES:
+        raise ValueError(
+            f"unknown intersect mode {tuning.mode!r} (TPU_PT_INTERSECT): expected "
+            + " | ".join(MODES)
+        )
+    if tuning.cheap_recheck not in (0, 1, 2):
+        raise ValueError(
+            f"unknown cheap_recheck {tuning.cheap_recheck!r} (TPU_PT_CHEAP_RECHECK): "
+            "expected 0 | 1 | 2"
+        )
+
+
 def closest_hit_chunks(
     origin: torch.Tensor,  # [R, 3], R % ray_tile == 0
     direction: torch.Tensor,  # [R, 3]
@@ -373,22 +648,15 @@ def closest_hit_chunks(
     group: int = GROUP,
     tuning: IntersectTuning | None = None,
 ) -> Hit:
-    """Closest hit through the mode "items" cascade (see the module doc).
-    Equal to a brute force over every triangle in the same arithmetic up to
-    exact-t ties, except where a ray's own rounded slab test cannot reach
-    the chunk of a hit (a hit on a chunk's AABB face, or a few 1e-4 from a
-    surface-spawned origin), which the JAX cascade shares."""
+    """Closest hit through the intersector mode ``tuning.mode`` (see the
+    module doc).  Equal to a brute force over every triangle in the same
+    arithmetic up to exact-t ties, except where a ray's own rounded slab
+    test cannot reach the chunk of a hit (a hit on a chunk's AABB face, or a
+    few 1e-4 from a surface-spawned origin), which the JAX package's modes
+    share."""
     tuning = (tuning or IntersectTuning()).resolve()
-    if tuning.mode != "items":
-        raise NotImplementedError(
-            f"intersect mode {tuning.mode!r}: only 'items' is ported (ROADMAP "
-            "Queue B: B5 dense, B6 twopass, B7 bins)"
-        )
-    if tuning.cheap_recheck != 0:
-        raise NotImplementedError(
-            "cheap_recheck != 0 is not ported: the port always runs the full "
-            "slab recheck (ROADMAP: next slices, engine and config parity)"
-        )
+    check_tuning(tuning)
+    mode = tuning.mode
     r = origin.shape[0]
     if r % ray_tile:
         raise ValueError(f"ray count {r} is not a multiple of the ray tile {ray_tile}")
@@ -402,19 +670,39 @@ def closest_hit_chunks(
     chunk_min = _nan_pad(chunk_min, cg * group).contiguous()
     chunk_max = _nan_pad(chunk_max, cg * group).contiguous()
     rays = pack_rays(origin, direction)
+    if mode == "bins":  # no tile activity prepass
+        t_best, tri = _closest_hit_bins(
+            rays, chunk_woop, chunk_min, chunk_max, min_dst, ray_tile, group, tuning.bins_cap
+        )
+        return _winner(rays, woop_rows, t_best, tri)
+    t_inf = torch.full((r,), _INF, device=rays.device)
+    i_zero = torch.zeros((r,), dtype=torch.int32, device=rays.device)
 
     n_blocks = -(-cg * group // ACT_COLS)
     cbits = None
     if n_blocks > tuning.super_min:
         cbits = super_block_bits(rays, chunk_min, chunk_max, min_dst, ray_tile)
-    m8, ent, _ = tile_chunk_activity(
-        rays, chunk_min, chunk_max, None, cbits, min_dst, ray_tile, n_sub
+    # Cheap rechecks compare the initial pass's sub-tile entry minima.
+    cheap = tuning.cheap_recheck if n_sub > 1 else 0
+    m8, ent, sub_ent0 = tile_chunk_activity(
+        rays, chunk_min, chunk_max, None, cbits, min_dst, ray_tile, n_sub, want_sub=cheap != 0
     )
+    if mode == "dense":
+        t_best, tri = run_dense(rays, t_inf, i_zero, chunk_woop, _bitpack(m8 != 0), min_dst)
+        return _winner(rays, woop_rows, t_best, tri)
     _, ge = _group_stats(m8 != 0, ent, group)
 
-    def recheck(t_c, live):
-        """Activity under each ray's best t so far, gated to the column
-        blocks that still hold an active untested group."""
+    def recheck(t_c, live, final):
+        """Activity under each ray's best t so far.  Full form: the slab
+        test again with the per-ray bound, gated to the column blocks that
+        still hold an active untested group.  Cheap form (cheap_recheck 1
+        everywhere, 2 between near passes only): the stored sub-tile entry
+        minima against the sub-tile maximum of the per-ray bound."""
+        if cheap == 1 or (cheap == 2 and not final):
+            tb_sub = t_c.reshape(t_tiles, n_sub, ray_tile // n_sub).amax(dim=2)
+            ok = torch.isfinite(sub_ent0) & (sub_ent0 <= tb_sub[:, :, None])
+            shifts = torch.arange(n_sub, dtype=torch.int32, device=rays.device)[None, :, None]
+            return (ok.to(torch.int32) << shifts).sum(dim=1, dtype=torch.int32)
         gate = cbits
         if tuning.gate_recheck:
             gate = _live_block_bits(live, group)
@@ -429,11 +717,13 @@ def closest_hit_chunks(
         )[0]
 
     def run_pass(m8_p, ga_p, cap, t_c, i_c):
+        """One worklist pass: B6's slot grid under "twopass", B2 otherwise."""
         idx, counts, _ = _worklist(ga_p, ge, cap)
         masks = torch.take_along_dim(
             _pack_group_masks(m8_p, group), idx[:, :, None].long(), dim=1
         )
-        t_c, i_c = run_items(
+        kernel = run_slots if mode == "twopass" else run_items
+        t_c, i_c = kernel(
             rays, t_c, i_c, chunk_woop, idx.contiguous(), counts.contiguous(),
             masks.contiguous(), min_dst, group, n_sub,
         )
@@ -443,31 +733,17 @@ def closest_hit_chunks(
     ladder = [int(x) * base // 4 for x in tuning.near.split(",")]
     near_caps = [min(cap, cg) for cap in ladder if cap < cg]
     tested = torch.zeros((t_tiles, cg), dtype=torch.bool, device=rays.device)
-    t_cur = torch.full((r,), _INF, device=rays.device)
-    i_cur = torch.zeros((r,), dtype=torch.int32, device=rays.device)
+    t_cur, i_cur = t_inf, i_zero
     m8_p = m8
-    for cap in near_caps:
+    for k, cap in enumerate(near_caps):
         ga_p = _group_stats(m8_p != 0, ent, group)[0] & ~tested
         t_cur, i_cur, idx = run_pass(m8_p, ga_p, cap, t_cur, i_cur)
         tested.scatter_(1, idx.long(), True)
-        m8_p = recheck(t_cur, ga_p & ~tested)
+        m8_p = recheck(t_cur, ga_p & ~tested, k == len(near_caps) - 1)
     # Residual: everything still active and untested, in one pass.
     ga_r = _group_stats(m8_p != 0, ent, group)[0] & ~tested
     t_best, tri, _ = run_pass(m8_p, ga_r, cg, t_cur, i_cur)
-
-    # Winner barycentrics: one [R, 12] row gather (rows[t, 4j+k]).
-    hit = torch.isfinite(t_best)
-    tri_safe = torch.where(hit, tri, torch.zeros_like(tri))
-    w = woop_rows[tri_safe.long()].reshape(r, 3, 4).transpose(1, 2)
-    _, beta, gamma = winner_barycentrics(rays[:, 0:4], rays[:, 4:8], w)
-    zero = torch.zeros_like(beta)
-    return Hit(
-        t=torch.where(hit, t_best, torch.full_like(t_best, _INF)),
-        tri=tri_safe,
-        beta=torch.where(hit, beta, zero),
-        gamma=torch.where(hit, gamma, zero),
-        hit=hit,
-    )
+    return _winner(rays, woop_rows, t_best, tri)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Counter-based threefry-2x32 uniforms (port of ``tpu_pathtracer/ops/rng.py``).
+"""Counter-based threefry-2x32 uniforms and Owen-scrambled Sobol points (port
+of ``tpu_pathtracer/ops/rng.py``).
 
 The draw for (seed, pixel, sample, depth, draw index) is a pure function of
 those five integers, bit-equal to the JAX package's stream: every uniform is
@@ -88,14 +89,93 @@ def lane_uniforms(
     return draws.reshape(-1, pixel.shape[0])[:n_draws]
 
 
+# ---------------------------------------------------------------------------
+# Owen-scrambled 2D Sobol (jitter="sobol", lowdisc="sobol"): the same counter
+# discipline, so a point is a pure function of (seed, pixel, sample[, depth,
+# tag]).  Every u32 product is formed from 16-bit halves so no int64 product
+# overflows.
+# ---------------------------------------------------------------------------
+
+# Direction numbers of dimension 2, MSB-aligned: v[i] = v[i-1] ^ (v[i-1] >> 1)
+# from v[0] = 2^31 (dimension 1 is the identity: value = reverse_bits(index)).
+_SOBOL_V2 = [0x80000000]
+for _ in range(31):
+    _SOBOL_V2.append(_SOBOL_V2[-1] ^ (_SOBOL_V2[-1] >> 1))
+
+# Domain tags of the two bounce pairs lowdisc="sobol" replaces.
+SOBOL_TAG_VNDF = 0x564E4446  # 'VNDF'
+SOBOL_TAG_LIGHT = 0x4C495445  # 'LITE'
+_SOBL = 0x534F424C  # 'SOBL'
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for u32 values held in int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _reverse_bits32(x: torch.Tensor) -> torch.Tensor:
+    x = ((x >> 1) & 0x55555555) | ((x & 0x55555555) << 1)
+    x = ((x >> 2) & 0x33333333) | ((x & 0x33333333) << 2)
+    x = ((x >> 4) & 0x0F0F0F0F) | ((x & 0x0F0F0F0F) << 4)
+    x = ((x >> 8) & 0x00FF00FF) | ((x & 0x00FF00FF) << 8)
+    return ((x >> 16) | (x << 16)) & _M32
+
+
+def _laine_karras(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Burley's (JCGT 2020) Laine-Karras hash: a nested uniform scramble in
+    the reversed-bit domain."""
+    x = (x + seed) & _M32
+    for c in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        x = x ^ _mul32(x, c)
+    return x
+
+
+def _owen_scramble(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    return _reverse_bits32(_laine_karras(_reverse_bits32(v), seed))
+
+
+def _sobol_point(idx: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """[2, R] Owen-scrambled Sobol point ``idx`` (u32 in int64, [R]) under
+    the per-lane scramble seeds (s1, s2)."""
+    d1 = _reverse_bits32(_laine_karras(idx, s1))
+    d2 = torch.zeros_like(idx)
+    for k, v in enumerate(_SOBOL_V2):
+        d2 = d2 ^ torch.where(((idx >> k) & 1) > 0, v, 0)
+    d2 = _owen_scramble(d2, s2)
+    return torch.stack([_bits_to_unit(d1), _bits_to_unit(d2)], dim=0)
+
+
+def sobol_owen_2d(seed: int, sample: _Int, pixel: torch.Tensor) -> torch.Tensor:
+    """[2, R] Owen-scrambled 2D Sobol point ``sample`` (scalar or [R]) of
+    each pixel's sequence; the per-pixel scramble seeds are one threefry
+    block of (pixel, 0) under the 'SOBL' tag."""
+    dev = pixel.device
+    k0, k1 = key_words(seed)
+    p = _u32(pixel)
+    s1, s2 = tf2x32(k0 ^ _SOBL, k1, p, 0, device=dev)
+    return _sobol_point(_u32(sample, dev) + p * 0, s1, s2)
+
+
+def sobol_owen_pair(seed: int, sample: _Int, depth: _Int, pixel: torch.Tensor,
+                    tag: int) -> torch.Tensor:
+    """[2, R] point ``sample`` of the per-(pixel, depth, tag) Owen-scrambled
+    (0,2)-sequence: the bounce-draw form of ``sobol_owen_2d``."""
+    dev = pixel.device
+    k0, k1 = key_words(seed)
+    p = _u32(pixel)
+    s1, s2 = tf2x32(k0 ^ tag, k1, p, _u32(depth, dev) ^ _SOBL, device=dev)
+    return _sobol_point(_u32(sample, dev) + p * 0, s1, s2)
+
+
 def jitter_uniforms(
     seed: int, sample: _Int, pixel: torch.Tensor, kind: str = "uniform"
 ) -> torch.Tensor:  # [2, R]
-    """Camera-jitter draws: the JITTER_DEPTH lane stream.  Only the uniform
-    kind is ported; Sobol jitter is a later slice."""
+    """Camera-jitter draws: the JITTER_DEPTH lane stream ("uniform") or the
+    Owen-scrambled Sobol point ("sobol")."""
+    if kind == "sobol":
+        return sobol_owen_2d(seed, sample, pixel)
     if kind != "uniform":
-        raise NotImplementedError(
-            f"jitter {kind!r}: only 'uniform' is ported (ROADMAP: next slices, "
-            "engine and config parity)"
-        )
+        raise ValueError(f"unknown jitter kind {kind!r}: expected uniform | sobol")
     return lane_uniforms(seed, sample, JITTER_DEPTH, pixel, 2)
