@@ -64,6 +64,26 @@ EPS = 1e-4  # RenderConfig.eps, the intersector's min_dst
 DEV = "cuda"
 N_RAYS = 1 << 16  # RenderConfig.rays_per_batch
 
+# The least time a kernel could take (``bound_ms``): the larger of its bytes
+# (each input read once, each output written once) over the H100's 3.35 TB/s
+# and its lane operations over the float32 peak.  The published 67 TFLOP/s
+# counts a fused multiply-add as two operations; the kernels are built with
+# --fmad=false, so each add, multiply, compare or select is one operation of
+# one lane: SMs x 128 lanes x 1.98 GHz (33.45 T/s on 132 SMs).
+HBM_BYTES_PER_S = 3.35e12
+CLOCK_HZ = 1.98e9
+# Lane operations per pair, counted from the sources.  A Woop pair
+# (csrc/stage.cuh woop_hit + the running first minimum): 18 + 15 products
+# and sums, 4 for beta and gamma, 8 for the tests, ~6 for the IEEE divide,
+# 4 for the select and the minimum.  A light-pdf pair: the same test and the
+# term t*t*|d|^2*k/|q2| with its second divide and sum, ~65.  A slab pair
+# (csrc/chunk_kernels.cu activity_kernel): 12 differences and products, 10
+# NaN-propagating min/max of 3 operations each, ~8 for the tests and the
+# entry minimum.
+WOOP_OPS = 55
+PDF_OPS = 65
+SLAB_OPS = 50
+
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -82,6 +102,19 @@ def sync_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def bound(pairs, ops_per_pair, n_bytes):
+    """(bound_ms, bound_by) for ``pairs`` pair tests of ``ops_per_pair`` lane
+    operations that move ``n_bytes``."""
+    lane_ops_per_s = torch.cuda.get_device_properties(0).multi_processor_count * 128 * CLOCK_HZ
+    t_ops = pairs * ops_per_pair / lane_ops_per_s * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def card_line():
@@ -158,8 +191,9 @@ def make_inputs(tmp, lit_banners=False):
     scene = gltf.parse_gltf_scene(path, W / H, config)
     t_parse = time.perf_counter() - t0
     scene = dataclasses.replace(scene, camera=scene.camera.with_dims(W, H)).to(DEV)
-    emit("inputs", scene=name, pil=textured,
-         native_packer=gltf.native.load_library() is not None,
+    if gltf.native.load_library() is None:
+        raise AssertionError("the port's native packer (csrc/accel_pack.cpp) did not build or load")
+    emit("inputs", scene=name, pil=textured, native_packer=gltf.native.LIBRARY,
          triangles=int(scene.valid.sum()), chunks=scene.chunk_woop.shape[0],
          lights=scene.lights.count, light_clusters=scene.lights.cluster_woop.shape[0],
          gen_seconds=round(t_gen, 3), parse_seconds=round(t_parse, 3))
@@ -240,12 +274,14 @@ def worklists(scene, o, d):
 
 
 def phase_b2(scene, rays_sets):
-    """B2 kernel vs its twin on real worklists (``compare_hits``)."""
+    """B2 kernel vs its twin on real worklists: t and tri bit-equal to the
+    twin (ties included) and across two runs.  Returns (max abs error,
+    timing args, set mask bits of the timing worklist)."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
     from tpu_pathtracer_torch import kernels
 
     worst = 0.0
-    timing = None
+    timing = units = None
     for name, (o, d) in rays_sets.items():
         rays, cw, wls = worklists(scene, o, d)
         r = rays.shape[0]
@@ -254,13 +290,20 @@ def phase_b2(scene, rays_sets):
         for wl_name, (idx, counts, masks) in wls.items():
             args = (rays, t0, i0, cw, idx, counts, masks, EPS, ci.GROUP, 8)
             tk, ik = kernels.items(*args)
+            tk2, ik2 = kernels.items(*args)
             tp, ip = ci.run_items_plain(*args)
             torch.cuda.synchronize()
+            bits = int(ci.item_unit_offsets(counts, masks, ci.GROUP, 8)[-1])
+            equal = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+            det = bool(torch.equal(tk, tk2) and torch.equal(ik, ik2))
             worst = max(worst, compare_hits("b2", name, tk, ik, tp, ip, worklist=wl_name,
-                                            items=int(counts.sum())))
+                                            items=int(counts.sum()), set_bits=bits,
+                                            bit_equal_to_twin=equal, deterministic=det))
+            if not (equal and det):
+                raise AssertionError(f"B2 is not bit-equal to its twin or itself ({name}, {wl_name})")
             if name == "secondary" and wl_name == "residual":
-                timing = args
-    return worst, timing
+                timing, units = args, bits
+    return worst, timing, units
 
 
 def brute_force(scene, o, d):
@@ -459,9 +502,14 @@ def phase_b6(scene, rays_sets):
             torch.cuda.synchronize()
             same_b2 = bool(torch.equal(tk, tb) and torch.equal(ik, ib))
             det = bool(torch.equal(tk, tk2) and torch.equal(ik, ik2))
+            turns = [sync_ms(lambda: kernels.items(*args), 10),  # B2, B6, B6, B2
+                     sync_ms(lambda: kernels.slots(*args), 10),
+                     sync_ms(lambda: kernels.slots(*args), 10),
+                     sync_ms(lambda: kernels.items(*args), 10)]
             worst = max(worst, compare_hits(
                 "b6", f"{name}/{wl_name}", tk, ik, tp, ip, items=int(counts.sum()),
-                slots=idx.shape[1], equal_to_b2=same_b2, deterministic=det))
+                slots=idx.shape[1], equal_to_b2=same_b2, deterministic=det,
+                b2_ms=[turns[0], turns[3]], b6_ms=[turns[1], turns[2]]))
             if not (same_b2 and det):
                 raise AssertionError(f"B6 differs from B2 or from itself ({name}, {wl_name})")
             if name == "secondary" and wl_name == "residual":
@@ -883,6 +931,53 @@ def phase_sort_keys(path, hint):
     return out
 
 
+# Why no kernel has a ``library_ms``: no single PyTorch call computes the
+# same function (each is a slab or Woop test fused with a minimum, an any
+# or a masked sum, over a worklist that depends on the data).
+LIBRARY_NOTE = {
+    "b1": "none: a slab test fused with a per-sub-tile entry minimum",
+    "b2": "none: a Woop test fused with a first minimum over a per-tile worklist",
+    "b3": "none: a masked sum of Woop terms over a per-tile worklist",
+    "b4": "none: a slab test fused with a first-minimum argmin",
+    "b5": "none: a Woop test fused with a first minimum over the active pairs",
+    "b6": "none: a Woop test fused with a first minimum over a per-tile worklist",
+    "b7": "none: a slab test fused with an any over each group",
+}
+
+
+def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
+    """{kernel: (pair tests, lane operations per pair, bytes)} at the timing
+    shapes, counted from this run's inputs: B1 the (ray, chunk) pairs of
+    the column blocks its gate lets through, B2 and B6 the set mask bits x
+    64 rays x 128 triangles, B5 the active (tile, chunk) pairs x 512 x 128,
+    B4 and B7 every (ray, box) pair.  Bytes: each input read once, each
+    output written once."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    rays, cmin, cmax, _, cbits, _, ray_tile, _, _ = b1_args
+    r, c = rays.shape[0], cmin.shape[0]
+    t_tiles = r // ray_tile
+    blk = torch.arange(-(-c // ci.ACT_COLS), device=DEV)
+    on = ((cbits[:, blk // 32] >> (blk % 32)) & 1) if cbits is not None else torch.ones_like(blk)
+    cols = torch.clamp(c - blk * ci.ACT_COLS, max=ci.ACT_COLS)
+    work = {"b1": (int((on * cols).sum()) * ray_tile * (t_tiles if cbits is None else 1),
+                   SLAB_OPS, nbytes(rays, cmin, cmax, cbits) + 8 * t_tiles * c)}
+    rays, tmin0, tidx0, cw, idx, counts, masks, _, _, n_sub = b2_args
+    work["b2"] = work["b6"] = (
+        b2_units * (ray_tile // n_sub) * cw.shape[2], WOOP_OPS,
+        nbytes(rays, tmin0, tidx0, cw, idx, counts, masks) + 8 * r)
+    rays, bmin, bmax, _ = b4_args
+    work["b4"] = (r * bmin.shape[0], SLAB_OPS, nbytes(rays, bmin, bmax) + 8 * r)
+    rays, tmin0, tidx0, cw, bits, _ = b5_args
+    active = sum(int(((bits >> k) & 1).sum()) for k in range(32))
+    work["b5"] = (active * ray_tile * cw.shape[2], WOOP_OPS,
+                  nbytes(rays, tmin0, tidx0, cw, bits) + 8 * r)
+    rays, cmin, cmax, _, group = b7_args
+    work["b7"] = (r * cmin.shape[0], SLAB_OPS,
+                  nbytes(rays, cmin, cmax) + 4 * r * (cmin.shape[0] // group))
+    return work
+
+
 def main():
     phase_device()
     phase_build()
@@ -896,7 +991,7 @@ def main():
         if not textured:
             print("PIL is not installed: the atriums are rendered untextured", flush=True)
         b1_err = phase_b1(scene, rays_sets)
-        b2_err, b2_args = phase_b2(scene, rays_sets)
+        b2_err, b2_args, b2_units = phase_b2(scene, rays_sets)
         brutes = phase_cascade(scene, rays_sets)
         b4_err, b4_args = phase_b4(scene, rays_sets)
         b5_err, b5_args = phase_b5(scene, rays_sets)
@@ -907,26 +1002,32 @@ def main():
         # Kernel vs twin time at the main paths' shapes: the initial gated
         # activity pass, the residual item pass, the first-entered-group
         # search, the dense grid on the initial activity, the residual slot
-        # pass and the per-ray group bits on sorted atrium secondaries.
+        # pass and the per-ray group bits on sorted atrium secondaries.  B2
+        # and B6 run on the same worklist in turns (B2, B6, B6, B2).
         o, d = rays_sets["secondary"]
         rays = ci.pack_rays(o, d)
         cmin, cmax = scene.chunk_aabb_min, scene.chunk_aabb_max
         cbits = ci.super_block_bits(rays, cmin, cmax, EPS, ci.RAY_TILE)
         b1_args = (rays, cmin, cmax, None, cbits, EPS, ci.RAY_TILE, 8, False)
+        turns = [sync_ms(lambda: kernels.items(*b2_args), 20),
+                 sync_ms(lambda: kernels.slots(*b6_args), 20),
+                 sync_ms(lambda: kernels.slots(*b6_args), 20),
+                 sync_ms(lambda: kernels.items(*b2_args), 20)]
+        emit("b2_vs_b6", worklist="secondary residual", set_bits=b2_units, b2_ms=[turns[0], turns[3]],
+             b6_ms=[turns[1], turns[2]])
         times = {
             "b1": (sync_ms(lambda: kernels.activity(*b1_args), 20),
                    sync_ms(lambda: ci.tile_chunk_activity_plain(*b1_args), 5)),
-            "b2": (sync_ms(lambda: kernels.items(*b2_args), 20),
-                   sync_ms(lambda: ci.run_items_plain(*b2_args), 3)),
+            "b2": ((turns[0] + turns[3]) / 2, sync_ms(lambda: ci.run_items_plain(*b2_args), 3)),
             "b4": (sync_ms(lambda: kernels.nearest(*b4_args), 20),
                    sync_ms(lambda: ci.nearest_box_ids_plain(*b4_args), 5)),
             "b5": (sync_ms(lambda: kernels.dense(*b5_args), 10),
                    sync_ms(lambda: ci.run_dense_plain(*b5_args), 1)),
-            "b6": (sync_ms(lambda: kernels.slots(*b6_args), 20),
-                   sync_ms(lambda: ci.run_slots_plain(*b6_args), 3)),
+            "b6": ((turns[1] + turns[2]) / 2, sync_ms(lambda: ci.run_slots_plain(*b6_args), 3)),
             "b7": (sync_ms(lambda: kernels.ray_groups(*b7_args), 20),
                    sync_ms(lambda: ci.ray_group_bools_plain(*b7_args), 5)),
         }
+        work = kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args)
         del scene, rays_sets, rays, cbits, brutes, b1_args, b2_args, b4_args, b5_args, b6_args, b7_args
         torch.cuda.empty_cache()
 
@@ -937,9 +1038,12 @@ def main():
         b3_err, b3_args = phase_b3(scene, rays_sets)
         times["b3"] = (sync_ms(lambda: kernels.light_pdf(*b3_args), 20),
                        sync_ms(lambda: ci.run_light_pdf_plain(*b3_args), 3))
+        rays, cluster_woop, cluster_k, idx, counts, _ = b3_args
+        work["b3"] = (int(counts.sum()) * ci.RAY_TILE * cluster_woop.shape[2], PDF_OPS,
+                      nbytes(rays, cluster_woop, cluster_k, idx, counts) + 4 * rays.shape[0])
         emit("timing", **{f"{k}_ms": v[0] for k, v in times.items()},
              **{f"{k}_plain_ms": v[1] for k, v in times.items()})
-        del scene, rays_sets, b3_args
+        del scene, rays_sets, b3_args, rays, cluster_woop, cluster_k, idx, counts
         torch.cuda.empty_cache()
 
         phase_golden(tmp)
@@ -980,13 +1084,19 @@ def main():
         ("slot grid (B6)", "mode_kernels.cu", "b6", 761),
         ("ray group bits (B7)", "mode_kernels.cu", "b7", 421),
     ]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"tpu_pathtracer_torch/csrc/{src}",
-         "replaces": f"tpu_pathtracer/ops/pallas_intersect.py:{line}",
-         "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
-         "plain_ms": times[k][1]}
-        for name, src, k, line in table
-    ]}), flush=True)
+    rows = []
+    for name, src, k, line in table:
+        pairs, ops, n_bytes = work[k]
+        bound_ms, bound_by = bound(pairs, ops, n_bytes)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"tpu_pathtracer_torch/csrc/{src}",
+            "replaces": f"tpu_pathtracer/ops/pallas_intersect.py:{line}",
+            "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
+            "plain_ms": times[k][1], "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / times[k][0], "library_ms": None,
+            "library_note": LIBRARY_NOTE[k],
+            "work": {"pairs": pairs, "ops_per_pair": ops, "bytes": n_bytes}})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

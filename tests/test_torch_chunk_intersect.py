@@ -191,3 +191,126 @@ def test_torch_kernel_wrappers_reject_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         ci.run_items(rays, rays[:, 0], idx[0], torch.zeros((8, 12, 128), device="meta"),
                      idx, idx[0], idx[:, :, None], EPS, 8, 2)
+
+
+def _kernel_units(offsets, counts, masks, group, n_sub, n_blocks):
+    """The B2 kernel's walk over its units, block by block, in plain Python
+    (``items_kernel`` in csrc/chunk_kernels.cu): the unit count split into
+    equal contiguous ranges, a binary search for each block's first unit
+    over the prefix sum, and the cursor that moves to the next set bit, and
+    past an exhausted item by a galloping search for the next item with
+    units.  Returns the (item, sub-tile) units in the order the blocks take
+    them."""
+    off = offsets.tolist()
+    n_items, total = len(off), off[-1]
+    _, cap, n_words = masks.shape
+    words = masks.reshape(-1).tolist()
+    cnt = counts.tolist()
+
+    def bits_of(item):
+        g, ts = item % group, item // group
+        if ts % cap >= cnt[ts // cap]:
+            return 0
+        return ((words[ts * n_words + g // 4] & 0xFFFFFFFF) >> (8 * (g % 4))) & ((1 << n_sub) - 1)
+
+    units = []
+    for b in range(n_blocks):
+        lo, hi = total * b // n_blocks, total * (b + 1) // n_blocks
+        if lo >= hi:
+            continue
+        a, z = 0, n_items - 1
+        while a < z:
+            m = (a + z) // 2
+            a, z = (a, m) if off[m] > lo else (m + 1, z)
+        item, bits = a, bits_of(a)
+        for _ in range(lo - (off[item] - bin(bits).count("1"))):
+            bits &= bits - 1
+        for u in range(hi - lo):
+            units.append((item, (bits & -bits).bit_length() - 1))
+            if u + 1 < hi - lo:
+                bits &= bits - 1
+                if bits == 0:
+                    v = off[item]
+                    a, z, step = item, item + 1, 1
+                    while off[z] <= v:
+                        a, step = z, step * 2
+                        z = min(item + step, n_items - 1)
+                    while z - a > 1:
+                        m = (a + z) // 2
+                        a, z = (a, m) if off[m] > v else (m, z)
+                    item, bits = z, bits_of(z)
+    return units, bits_of
+
+
+def _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, n_sub):
+    """Plain-torch evaluation driven by the unit list, as the B2 kernel
+    computes it: per unit, the first minimum of the sub-tile's rays over the
+    chunk, sent as the 64-bit key (t bits, test order) to a per-ray minimum;
+    then the key is decoded to the triangle and kept only where strictly
+    below tmin0."""
+    t_tiles, cap, _ = masks.shape
+    r = rays.shape[0]
+    ray_tile = r // t_tiles
+    rows = ray_tile // n_sub
+    cw = chunk_woop.shape[-1]
+    keys = torch.full((r,), 2**63 - 1, dtype=torch.int64)
+    for item, st in units:
+        g, ts = item % group, item // group
+        tile, s = ts // cap, ts % cap
+        ray_ids = torch.arange(rows) + tile * ray_tile + st * rows
+        chunk = int(idx[tile, s]) * group + g
+        o, d = rays[ray_ids, 0:3][None], rays[ray_ids, 4:7][None]
+        tmin, arg = ci._chunk_first_min(o, d, chunk_woop[chunk:chunk + 1], EPS)
+        tmin, arg = tmin[0], arg[0]
+        key = (tmin.view(torch.int32).to(torch.int64) << 32) | ((s * group + g) * cw + arg)
+        sent = tmin < tmin0[ray_ids]
+        keys[ray_ids] = torch.where(sent, torch.minimum(keys[ray_ids], key), keys[ray_ids])
+    found = keys != 2**63 - 1
+    t_key = (keys >> 32).to(torch.int32).view(torch.float32)
+    low = keys & 0xFFFFFFFF
+    lane, sg = low % cw, low // cw
+    tile = torch.arange(r) // ray_tile
+    jg = idx[tile, torch.where(found, sg // group, 0)].long()
+    tri = ((jg * group + sg % group) * cw + lane).to(torch.int32)
+    won = found & (t_key < tmin0)
+    return torch.where(won, t_key, tmin0), torch.where(won, tri, tidx0)
+
+
+@pytest.mark.parametrize("n_sub", [1, 2, 4])
+def test_torch_item_units_cover_every_bit_and_match_twin(n_sub):
+    """``item_unit_offsets`` and the kernel's walk over it: for any number
+    of blocks, every set mask bit of a slot below the count is taken exactly
+    once, in test order, and the evaluation driven by the units is bit-equal
+    to ``run_items_plain`` (t and tri), from a partly finished (tmin0, tidx0)
+    so the strict comparison with it matters.  The cascade's real glue makes
+    the worklist: 4 tiles of 128 rays over 2,000 triangles, one of them
+    with no slot and one with 3, so the walk crosses dead slots and a dead
+    tile."""
+    _, _, _, _, cmin, cmax, cw = _scene(2000, seed=0)
+    group = 2
+    cg = -(-cw.shape[0] // group)
+    chunk_woop = ci._nan_pad(_t(cw), cg * group)
+    cmin_t, cmax_t = ci._nan_pad(_t(cmin), cg * group), ci._nan_pad(_t(cmax), cg * group)
+    o, d = _rays(np.random.default_rng(1), 512, 8.0)
+    rays = ci.pack_rays(_t(o), _t(d))
+    m8, ent, _ = ci.tile_chunk_activity(rays, cmin_t, cmax_t, None, None, EPS, 128, n_sub)
+    ga, ge = ci._group_stats(m8 != 0, ent, group)
+    idx, counts, _ = ci._worklist(ga, ge, cg - 1)
+    counts = torch.clamp_max(counts, torch.tensor([cg - 1, 0, 3, cg - 1], dtype=torch.int32))
+    masks = torch.take_along_dim(ci._pack_group_masks(m8, group), idx[:, :, None].long(), dim=1)
+    rs = np.random.default_rng(2)
+    tmin0 = _t(np.where(rs.random(512) < 0.5, np.inf, rs.uniform(1, 12, 512)).astype(np.float32))
+    tidx0 = _t(rs.integers(0, 1000, 512).astype(np.int32))
+
+    offsets = ci.item_unit_offsets(counts, masks, group, n_sub)
+    assert offsets.dtype == torch.int32 and offsets.shape == (4 * (cg - 1) * group,)
+    want_t, want_tri = ci.run_items_plain(rays, tmin0, tidx0, chunk_woop, idx, counts, masks,
+                                          EPS, group, n_sub)
+    assert torch.isfinite(want_t).sum() > 30
+    for n_blocks in (1, 7, 10_000):
+        units, bits_of = _kernel_units(offsets, counts, masks, group, n_sub, n_blocks)
+        every = [(item, st) for item in range(offsets.numel()) for st in range(n_sub)
+                 if bits_of(item) >> st & 1]
+        assert units == every and len(units) == int(offsets[-1]) >= 20
+    t, tri = _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, n_sub)
+    assert torch.equal(t, want_t) and torch.equal(tri, want_tri)

@@ -10,15 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_pathtracer.config import RenderConfig
 from tpu_pathtracer.models import pathtracer as jpt
 from tpu_pathtracer.ops import rng as jrng
 from tpu_pathtracer.utils.testscenes import make_cornell_gltf, make_sphere_field_gltf
 from tpu_pathtracer_torch import cli
+from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import rng as trng
 from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from test_torch_render import _assert_fp_noise, _render_both
+from test_torch_scene import jax_config
 
 torch.set_num_threads(1)
 
@@ -78,7 +79,7 @@ def test_torch_bounce_draws_lowdisc_bit_equal(seed):
             _bits_equal(
                 pt.bounce_draws(seed, torch.as_tensor(s), torch.as_tensor(b),
                                 torch.from_numpy(pix), config),
-                jpt.bounce_draws(key, jnp.asarray(s), jnp.asarray(b), jnp.asarray(pix), config),
+                jpt.bounce_draws(key, jnp.asarray(s), jnp.asarray(b), jnp.asarray(pix), jax_config(config)),
             )
     with pytest.raises(ValueError, match="unknown lowdisc"):
         pt.bounce_draws(seed, 0, 0, torch.from_numpy(pix), RenderConfig(lowdisc="bogus"))

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_pathtracer.config import RenderConfig
 from tpu_pathtracer.models import pathtracer as jpt
 from tpu_pathtracer.ops import pallas_intersect as jpi
 from tpu_pathtracer.ops import texture as jtex
@@ -25,6 +24,7 @@ from tpu_pathtracer.utils.testscenes import (
     make_sphere_field_gltf,
 )
 from tpu_pathtracer_torch.bridge import scene_from_arrays
+from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 from tpu_pathtracer_torch.ops import texture
@@ -32,7 +32,7 @@ from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
 from test_torch_chunk_intersect import _scene
 from test_torch_render import _assert_fp_noise
-from test_torch_scene import jax_scene_arrays
+from test_torch_scene import jax_config, jax_scene_arrays
 
 torch.set_num_threads(1)
 
@@ -117,7 +117,7 @@ def test_torch_sort_keys_match_jax(tmp_path, key):
     o[~alive] = 1e30
     hint = rng.integers(-1, ts.chunk_woop.shape[0], r).astype(np.int32)
     config = RenderConfig(sort_key=key)
-    want = np.asarray(jpt._make_sort_key(js, config, r)(
+    want = np.asarray(jpt._make_sort_key(js, jax_config(config), r)(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(alive), jnp.asarray(hint)))
     got = pt._make_sort_key(ts, config, r)(_t(o), _t(d), _t(alive), _t(hint)).numpy()
     assert got.dtype == np.int32 and got.shape == (r,)
@@ -155,7 +155,7 @@ def test_torch_env_radiance_matches_jax(tmp_path, fmt):
     env = (make_env_image if fmt == "png" else make_env_hdr)(str(tmp_path / f"env.{fmt}"))
     config = RenderConfig(use_env_map=True, env_map_path=env, env_map_intensity=1.7)
     path = make_cornell_gltf(str(tmp_path / "c" / "c.gltf"))
-    js = jax_parse(path, 1.0, config)
+    js = jax_parse(path, 1.0, jax_config(config))
     ts = parse_gltf_scene(path, 1.0, config)
     assert ts.has_env and ts.env_tex == int(js.env_tex)
     rng = np.random.default_rng(4)
@@ -171,11 +171,12 @@ def _render_both(path, config, w, h, spp, seed=3):
     """Render one file under ``config`` with both packages (the port's
     scene through the bridge from the JAX scene's arrays) -> two u8
     images as int."""
-    js = jax_parse(path, w / h, config)
+    js = jax_parse(path, w / h, jax_config(config))
     js = dataclasses.replace(js, camera=js.camera.with_dims(w, h))
     arrays, statics = jax_scene_arrays(js)
     ts = scene_from_arrays(arrays, {**statics, "width": w, "height": h})
-    want = np.asarray(jax_quantize(jnp.asarray(jpt.render(js, spp=spp, seed=seed, config=config))))
+    jax_hdr = jpt.render(js, spp=spp, seed=seed, config=jax_config(config))
+    want = np.asarray(jax_quantize(jnp.asarray(jax_hdr)))
     hdr = pt.render(ts, spp=spp, seed=seed, config=config)
     assert np.isfinite(hdr).all()
     return want.astype(int), quantize_u8(torch.from_numpy(hdr)).numpy().astype(int)

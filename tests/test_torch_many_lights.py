@@ -184,3 +184,37 @@ def test_torch_light_kernel_wrappers_reject_other_devices():
     box = torch.zeros((4, 3), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         ci.nearest_box_ids(rays[:, :3], rays[:, 4:7], box, box, EPS, ray_tile=128)
+
+
+@pytest.mark.parametrize("counts", [(8, 1), (5, 0), (3, 7)], ids=["full", "empty_tile", "ragged"])
+def test_torch_light_pdf_segmented_sum_matches_twin(counts):
+    """B3's decomposition: each tile's worklist cut into segments of
+    ``kernels.PDF_SEGMENT`` clusters, one partial sum per (ray, segment) in
+    worklist order, then the partial sums added in segment order; equal to
+    ``run_light_pdf_plain`` within 1e-6 relative (only the order of a sum
+    of non-negative terms differs), with 0 where a tile has no cluster."""
+    from tpu_pathtracer_torch import kernels
+
+    seg = kernels.PDF_SEGMENT
+    _, lverts, o, d = _lights(seed=8, n_rays=256, n_dark=0)
+    cl = light_clusters(lverts, COUNT)
+    cw, ck = _t(cl[2]), _t(cl[3])
+    rays = ci.pack_rays(_t(o), _t(d))
+    idx = torch.tensor([[3, 0, 5, 7, 1, 2, 6, 4], [7, 2, 1, 4, 5, 6, 3, 0]], dtype=torch.int32)
+    counts = torch.tensor(counts, dtype=torch.int32)
+    want = ci.run_light_pdf_plain(rays, cw, ck, idx, counts, EPS)
+    n_seg = -(-idx.shape[1] // seg)
+    partial = torch.zeros((n_seg, 256))
+    for s in range(n_seg):
+        part_counts = torch.clamp(counts - s * seg, 0, seg)
+        partial[s] = ci.run_light_pdf_plain(rays, cw, ck, idx[:, s * seg:(s + 1) * seg].contiguous(),
+                                            part_counts, EPS)
+    got = torch.zeros(256)
+    for s in range(n_seg):
+        got = got + partial[s]
+    assert (want > 0).sum() > 10
+    np.testing.assert_array_equal((got == 0).numpy(), (want == 0).numpy())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+    for tile, n in enumerate(counts.tolist()):
+        if n == 0:
+            assert not want[128 * tile:128 * (tile + 1)].any()

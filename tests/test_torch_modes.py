@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_pathtracer.config import IntersectTuning
+from tpu_pathtracer.config import IntersectTuning as JaxIntersectTuning
 from tpu_pathtracer.ops import pallas_intersect as jpi
+from tpu_pathtracer_torch.config import IntersectTuning
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 from test_torch_chunk_intersect import _rays, _scene, _t
 
@@ -26,15 +27,16 @@ EPS = 1e-4
 
 
 def _both(scene, o, d, group=ci.GROUP, **tuning):
-    """One mode through the JAX package (interpret mode) and the port."""
+    """One mode through the JAX package (interpret mode) and the port, each
+    with its own IntersectTuning built from the same keywords."""
     _, _, woop, rows, cmin, cmax, cw = scene
-    tun = IntersectTuning(**tuning)
     want = jpi.closest_hit_chunks(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(cw), jnp.asarray(cmin), jnp.asarray(cmax),
-        jnp.asarray(woop), EPS, ray_tile=128, interpret=True, group=group, tuning=tun,
+        jnp.asarray(woop), EPS, ray_tile=128, interpret=True, group=group,
+        tuning=JaxIntersectTuning(**tuning),
     )
     got = ci.closest_hit_chunks(_t(o), _t(d), _t(cw), _t(cmin), _t(cmax), _t(rows), EPS,
-                                ray_tile=128, group=group, tuning=tun)
+                                ray_tile=128, group=group, tuning=IntersectTuning(**tuning))
     return want, got
 
 

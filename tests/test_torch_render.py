@@ -11,18 +11,18 @@ import pytest
 import torch
 
 from tpu_pathtracer.cli import main as jax_main
-from tpu_pathtracer.config import IntersectTuning, RenderConfig
 from tpu_pathtracer.models.pathtracer import render as jax_render
 from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
 from tpu_pathtracer.utils.image import quantize_u8 as jax_quantize
 from tpu_pathtracer.utils.testscenes import make_cornell_gltf, make_sphere_field_gltf
 from tpu_pathtracer_torch import cli
 from tpu_pathtracer_torch.bridge import scene_from_arrays
+from tpu_pathtracer_torch.config import IntersectTuning, RenderConfig
 from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
-from test_torch_scene import jax_scene_arrays
+from test_torch_scene import jax_config, jax_scene_arrays
 
 torch.set_num_threads(1)
 
@@ -37,7 +37,7 @@ def _render_both(path, w, h, spp, seed=3, config=RenderConfig()):
     js = dataclasses.replace(js, camera=js.camera.with_dims(w, h))
     arrays, statics = jax_scene_arrays(js)
     ts = scene_from_arrays(arrays, {**statics, "width": w, "height": h})
-    want = np.asarray(jax_quantize(jnp.asarray(jax_render(js, spp=spp, seed=seed, config=config))))
+    want = np.asarray(jax_quantize(jnp.asarray(jax_render(js, spp=spp, seed=seed, config=jax_config(config)))))
     stats = {}
     hdr = pt.render(ts, spp=spp, seed=seed, config=config, stats=stats)
     assert np.isfinite(hdr).all()

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_pathtracer.config import RenderConfig
+from tpu_pathtracer import config as jax_cfg
 from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
 from tpu_pathtracer.utils.testscenes import (
     make_cornell_gltf,
@@ -17,6 +17,7 @@ from tpu_pathtracer.utils.testscenes import (
     make_textured_cornell_gltf,
 )
 from tpu_pathtracer_torch.bridge import scene_from_arrays
+from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.scene import types as ttypes
 from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene as torch_parse
 
@@ -28,6 +29,15 @@ FIXTURES = {
     # 3 spheres x 1,280 + floor and light: 3,844 triangles, 31 chunks.
     "sphere_field": lambda p: make_sphere_field_gltf(p, n_spheres=3, subdiv=3, textured=True),
 }
+
+
+def jax_config(config):
+    """The JAX package's RenderConfig with the field values of the port's
+    ``config`` (the same keywords, IntersectTuning included), for the JAX
+    side of a comparison; the port takes its own config."""
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+    fields["tuning"] = jax_cfg.IntersectTuning(**dataclasses.asdict(config.tuning))
+    return jax_cfg.RenderConfig(**fields)
 
 
 def jax_scene_arrays(scene):
@@ -128,7 +138,7 @@ def test_torch_loader_rejects_unported_options(tmp_path, field):
         change["add_light_triangle"] = True
     config = dataclasses.replace(RenderConfig(), **change)
     path = make_cornell_gltf(str(tmp_path / "c" / "c.gltf"))
-    js, ts = jax_parse(path, 1.0, config), torch_parse(path, 1.0, config)
+    js, ts = jax_parse(path, 1.0, jax_config(config)), torch_parse(path, 1.0, config)
     want, statics = jax_scene_arrays(js)
     got = scene_arrays(ts)
     assert set(got) <= set(want), set(got) - set(want)

@@ -26,12 +26,11 @@ from typing import List, Optional
 
 import torch
 
-from tpu_pathtracer.config import DEFAULT_CONFIG, RenderConfig
-from tpu_pathtracer.utils.metrics import RenderMetrics
-
+from .config import DEFAULT_CONFIG, RenderConfig
 from .models.pathtracer import render
 from .scene.gltf import parse_gltf_scene
 from .utils.image import image_shape_or_raise, quantize_u8, write_ppm
+from .utils.metrics import RenderMetrics
 
 
 def _strtol(s: str) -> int:

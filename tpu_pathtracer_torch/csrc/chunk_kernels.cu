@@ -7,7 +7,8 @@
 // PyTorch's current stream.  --fmad=false keeps every slab and Woop
 // expression rounded op for op like the plain-torch twins in
 // ops/chunk_intersect.py, so m8 / ent / t / tri compare exactly on the card.
-// Each C entry returns cudaGetLastError() of its launch.
+// Each C entry returns the first CUDA error
+// of its launches (0 when none).
 //
 // ---------------------------------------------------------------------------
 // B1  activity_kernel
@@ -26,31 +27,58 @@
 //   over the rays per column block and one write per output.  The coarse
 //   gate is one bit per (tile, 512-column block), uniform over a block.
 //
-// B2  items_kernel
+// B2  items_kernel (+ items_final_kernel)
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:819 (_kernel_items, with
 //   _chunk_body_sub :694 and _contract_o/_contract_d :645-663).
-//   Per ray tile: walk the tile's front-to-back worklist of chunk groups;
-//   for every (chunk, 64-ray sub-tile) whose mask bit is set, Woop-test the
-//   sub-tile's rays against the chunk's 128 triangles and keep the closest
-//   hit (first minimum inside a chunk, strict < across chunks).
-//   Bound on the H100: ALU (~40 float ops and one divide per pair) and
-//   occupancy: the TPU grid ran items in order on one core; here blocks run
-//   in parallel, so one block per tile owns its 512 output rows and no item
-//   flattening, seeding or patching of unvisited tiles is needed.  Design:
-//   one thread per ray keeps (o, d, best t, best tri) in registers; each
-//   chunk's [12, 128] Woop block (6 KB) is staged in shared memory by the
-//   whole block and read as broadcasts; sub-tiles whose bit is clear idle.
-//   Later work: more tiles per SM, warp-level sub-tile scheduling.
+//   For tile i, slot s < counts[i], chunk g of group idx[i, s] and every
+//   64-ray sub-tile whose mask bit is set: the Woop test of the sub-tile's
+//   rays against the chunk's 128 triangles, first minimum inside a chunk,
+//   strict < across chunks in (slot, chunk) order, from (tmin0, tidx0).
+//   Bound on the H100: ALU.  A (ray, triangle) pair is ~55 lane ops (18 + 15
+//   products and sums, one IEEE divide, the barycentric tests and the
+//   running minimum); the inputs are 6 KB per chunk, read from L2.
+//   Design: the unit of work is one set mask bit, (tile, slot, chunk,
+//   sub-tile): 64 rays x 128 triangles.  ``item_unit_offsets`` (tensor code)
+//   gives the prefix sum of the units per (tile, slot, chunk) item in test
+//   order; a persistent grid of 64-thread blocks (as many as fit on the
+//   SMs) splits the unit count into equal contiguous ranges, each block
+//   finds its first unit by a binary search over the prefix sum and walks
+//   on from there (to the next item with units by a galloping search, so
+//   the dead slots of a short worklist cost no step each), so every SM is
+//   busy to the last unit and no warp runs on a clear bit.  The chunk's Woop block is staged triangle-major (three
+//   float4 per triangle: 3 shared loads per pair instead of 12) from a
+//   triangle-major copy of chunk_woop by one cp.async.bulk (TMA) into a
+//   two-stage ring completed on an mbarrier: the next unit's chunk is in
+//   flight while the current one is walked.  The result is order-fixed:
+//   each ray's chunk minimum goes to one 64-bit atomicMin on a key holding
+//   the float bits of t (t >= min_dst > 0 orders like the floats) above the
+//   test order (slot * group + g) * 128 + lane; the minimum key is the
+//   sequential walk's first minimum, ties included, whatever order the
+//   blocks run in, and a final pass decodes it to the triangle and keeps
+//   (tmin0, tidx0) unless strictly beaten.  So t and tri equal the plain
+//   twin bit for bit and from run to run.
+//   No tensor cores: the Woop contraction is three terms deep and the
+//   port's contract is IEEE rounding op for op under --fmad=false (t to 1
+//   ulp of the twin); TF32 or bf16 products in wgmma would break it.  The
+//   levers here are occupancy, the asynchronous staging and the shared
+//   memory layout.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int kActCols = 512;   // chunks per coarse-gate block
 constexpr int kActThreads = 128;  // chunk columns per activity block
+constexpr int kItemThreads = 64;  // rays per B2 step: one 64-ray sub-tile
+constexpr int kStages = 2;        // B2's ring of staged chunks
+constexpr int kStageAlign = 128;  // bytes before the ring (the barriers)
+constexpr int kFinalThreads = 256;
+constexpr unsigned long long kNoKey = ~0ull;
 
 // jnp.minimum / torch.minimum semantics: a NaN operand gives NaN (fminf and
 // fmaxf would drop it, and NaN-padded boxes rely on propagation to fail).
@@ -131,79 +159,156 @@ __global__ void activity_kernel(
   ent[(size_t)tile * n_cols + col] = emin;
 }
 
-__global__ void items_kernel(
+__device__ __forceinline__ unsigned long long make_key(float t, unsigned int low) {
+  return ((unsigned long long)__float_as_uint(t) << 32) | low;
+}
+
+__device__ __forceinline__ float key_time(unsigned long long key) {
+  return __uint_as_float((unsigned int)(key >> 32));
+}
+
+// The set sub-tile bits of chunk item ``item`` = (tile * cap + slot) *
+// group + g: byte g%4 of mask word g/4, none past the tile's count.
+__device__ __forceinline__ unsigned item_bits(const int32_t* __restrict__ counts,
+                                              const int32_t* __restrict__ masks, int item,
+                                              int cap, int n_words, int group,
+                                              unsigned submask) {
+  const int g = item % group;
+  const int ts = item / group;  // tile * cap + slot
+  if (ts % cap >= counts[ts / cap]) return 0u;
+  return ((unsigned)masks[(size_t)ts * n_words + g / 4] >> (8 * (g % 4))) & submask;
+}
+
+__global__ void __launch_bounds__(kItemThreads) items_kernel(
     const float* __restrict__ rays,        // [R, 8]
     const float* __restrict__ tmin0,       // [R]
-    const int32_t* __restrict__ tidx0,     // [R]
-    const float* __restrict__ chunk_woop,  // [Cpad, 12, cw]
+    const float4* __restrict__ woop_t,     // [Cpad, cw, 3] triangle-major Woop rows
     const int32_t* __restrict__ idx,       // [T, cap]
     const int32_t* __restrict__ counts,    // [T]
     const int32_t* __restrict__ masks,     // [T, cap, W]
-    int cap, int n_words, int group, int n_sub, int cw, float min_dst,
-    float* __restrict__ t_out,             // [R]
-    int32_t* __restrict__ tri_out) {       // [R]
-  extern __shared__ float w[];  // [12][cw] Woop block of the current chunk
-  const int tile = blockIdx.x;
-  const size_t i = (size_t)tile * blockDim.x + threadIdx.x;
-  const int st = threadIdx.x / (blockDim.x / n_sub);
-  const float* ray = rays + i * 8;
-  const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
-  const float d0 = ray[4], d1 = ray[5], d2 = ray[6];
-  float cur = tmin0[i];
-  int32_t cur_i = tidx0[i];
-  const int n = counts[tile];
-  for (int s = 0; s < n; ++s) {
-    const int jg = idx[(size_t)tile * cap + s];
-    const int32_t* words = masks + ((size_t)tile * cap + s) * n_words;
-    for (int g = 0; g < group; ++g) {
-      const int mask = (words[g / 4] >> (8 * (g % 4))) & 0xFF;
-      if (mask == 0) continue;  // uniform over the block
-      const int chunk = jg * group + g;
-      __syncthreads();  // previous chunk's readers are done
-      const float* src = chunk_woop + (size_t)chunk * 12 * cw;
-      for (int k = threadIdx.x; k < 12 * cw; k += blockDim.x) w[k] = src[k];
-      __syncthreads();
-      if (!((mask >> st) & 1)) continue;
+    const int32_t* __restrict__ offsets,   // [T * cap * group] units, inclusive prefix sum
+    int n_items, int cap, int n_words, int group, int n_sub, int ray_tile, int cw,
+    float min_dst,
+    unsigned long long* __restrict__ keys) {  // [R], all ones on entry
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);                  // [kStages]
+  float4* ring = reinterpret_cast<float4*>(smem + kStageAlign);       // [kStages][cw * 3]
+  const long long total = offsets[n_items - 1];
+  const long long lo = total * blockIdx.x / gridDim.x;
+  const long long hi = total * (blockIdx.x + 1) / gridDim.x;
+  if (lo >= hi) return;  // uniform over the block
+  const int n_units = (int)(hi - lo);
+  const unsigned submask = (1u << n_sub) - 1u;
+  const int rows = ray_tile / n_sub;
+  const uint32_t stage_bytes = (uint32_t)cw * 3 * sizeof(float4);
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kStages; ++k) tpt::mbar_init(&bar[k]);
+    tpt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The block's first unit: the first item whose prefix sum passes lo, then
+  // its (lo - units before the item)-th set bit.  Every thread walks the
+  // same cursor (uniform loads, served by L1).
+  int a = 0, b = n_items - 1;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if (offsets[m] > lo) b = m; else a = m + 1;
+  }
+  int item = a;
+  unsigned bits = item_bits(counts, masks, item, cap, n_words, group, submask);
+  for (long long k = lo - (offsets[item] - (long long)__popc(bits)); k > 0; --k) bits &= bits - 1;
+
+  auto issue = [&](int it, int stage) {  // thread 0: stage item it's chunk
+    const int chunk = idx[it / group] * group + it % group;
+    tpt::mbar_expect_tx(&bar[stage], stage_bytes);
+    tpt::bulk_load(ring + (size_t)stage * cw * 3, woop_t + (size_t)chunk * cw * 3, stage_bytes,
+                   &bar[stage]);
+  };
+  if (threadIdx.x == 0) issue(item, 0);
+  int next_item = item;
+  int next_st = __ffs(bits) - 1;
+
+  for (int u = 0; u < n_units; ++u) {
+    const int it = next_item;
+    const int st = next_st;
+    if (u + 1 < n_units) {  // decode the next unit and put its chunk in flight
+      bits &= bits - 1;
+      if (bits == 0) {
+        // The next item with units, by a galloping search over the prefix
+        // sum: a tile's dead slots (slot >= count, up to cap * group items)
+        // cost O(log gap) loads instead of one decode step each.
+        const int v = offsets[item];  // the next unit's number
+        int a = item, b = item + 1, step = 1;
+        while (offsets[b] <= v) {  // ends: offsets[n_items - 1] = total > v
+          a = b;
+          step <<= 1;
+          b = min(item + step, n_items - 1);
+        }
+        while (b - a > 1) {
+          const int m = (a + b) >> 1;
+          if (offsets[m] > v) b = m; else a = m;
+        }
+        item = b;
+        bits = item_bits(counts, masks, item, cap, n_words, group, submask);
+      }
+      next_item = item;
+      next_st = __ffs(bits) - 1;
+      if (threadIdx.x == 0) {
+        tpt::fence_proxy_async();  // the stage's last readers passed __syncthreads
+        issue(next_item, (u + 1) % kStages);
+      }
+    }
+    tpt::mbar_wait(&bar[u % kStages], (u / kStages) & 1);
+    const float4* w = ring + (size_t)(u % kStages) * cw * 3;
+    const int g = it % group;
+    const int ts = it / group;
+    const unsigned order0 = (unsigned)(((ts % cap) * group + g) * cw);
+    for (int r = threadIdx.x; r < rows; r += kItemThreads) {
+      const size_t i = (size_t)(ts / cap) * ray_tile + (size_t)st * rows + r;
+      const float* ray = rays + i * 8;
+      const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
+      const float d0 = ray[4], d1 = ray[5], d2 = ray[6];
       float best = INFINITY;
       int arg = 0;
       for (int j = 0; j < cw; ++j) {
-        float p0 = o0 * w[0 * cw + j] + w[3 * cw + j];
-        p0 = p0 + o1 * w[1 * cw + j];
-        p0 = p0 + o2 * w[2 * cw + j];
-        float p1 = o0 * w[4 * cw + j] + w[7 * cw + j];
-        p1 = p1 + o1 * w[5 * cw + j];
-        p1 = p1 + o2 * w[6 * cw + j];
-        float p2 = o0 * w[8 * cw + j] + w[11 * cw + j];
-        p2 = p2 + o1 * w[9 * cw + j];
-        p2 = p2 + o2 * w[10 * cw + j];
-        float q0 = d0 * w[0 * cw + j];
-        q0 = q0 + d1 * w[1 * cw + j];
-        q0 = q0 + d2 * w[2 * cw + j];
-        float q1 = d0 * w[4 * cw + j];
-        q1 = q1 + d1 * w[5 * cw + j];
-        q1 = q1 + d2 * w[6 * cw + j];
-        float q2 = d0 * w[8 * cw + j];
-        q2 = q2 + d1 * w[9 * cw + j];
-        q2 = q2 + d2 * w[10 * cw + j];
-        const float t = -p2 / q2;
-        const float beta = p0 + t * q0;
-        const float gamma = p1 + t * q1;
-        const bool ok = beta >= 0.0f && gamma >= 0.0f && beta + gamma <= 1.0f &&
-                        t >= min_dst;
+        float t, q2;
+        const bool ok = tpt::woop_hit(w[3 * j], w[3 * j + 1], w[3 * j + 2], o0, o1, o2, d0, d1,
+                                      d2, min_dst, &t, &q2);
         const float tm = ok ? t : INFINITY;
-        if (tm < best) {
+        if (tm < best) {  // strict: the first lane keeps a tie
           best = tm;
           arg = j;
         }
       }
-      if (best < cur) {
-        cur = best;
-        cur_i = chunk * cw + arg;
-      }
+      if (best < tmin0[i]) atomicMin(keys + i, make_key(best, order0 + (unsigned)arg));
     }
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
-  t_out[i] = cur;
-  tri_out[i] = cur_i;
+}
+
+__global__ void items_final_kernel(
+    const unsigned long long* __restrict__ keys, const float* __restrict__ tmin0,
+    const int32_t* __restrict__ tidx0, const int32_t* __restrict__ idx,
+    int n_rays, int ray_tile, int cap, int group, int cw,
+    float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const unsigned long long key = keys[i];
+  if (key != kNoKey && key_time(key) < tmin0[i]) {
+    const unsigned int ord = (unsigned int)(key & 0xFFFFFFFFu);
+    const unsigned int lane = ord % cw;
+    const unsigned int sg = ord / cw;  // slot * group + g
+    const int s = sg / group;
+    const int g = sg % group;
+    const int jg = idx[(size_t)(i / ray_tile) * cap + s];
+    t_out[i] = key_time(key);
+    tri_out[i] = (int32_t)((jg * group + g) * cw + lane);
+  } else {
+    t_out[i] = tmin0[i];
+    tri_out[i] = tidx0[i];
+  }
 }
 
 }  // namespace
@@ -224,17 +329,35 @@ extern "C" int tpt_activity(
 }
 
 extern "C" int tpt_items(
-    const void* rays, const void* tmin0, const void* tidx0,
-    const void* chunk_woop, const void* idx, const void* counts,
-    const void* masks, int n_rays, int t_tiles, int cap, int n_words,
-    int group, int n_sub, int cw, float min_dst, void* t_out, void* tri_out,
-    void* stream) {
+    const void* rays, const void* tmin0, const void* tidx0, const void* woop_t,
+    const void* idx, const void* counts, const void* masks, const void* offsets,
+    int n_rays, int t_tiles, int cap, int n_words, int group, int n_sub, int cw,
+    float min_dst, void* keys, void* t_out, void* tri_out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   const int ray_tile = n_rays / t_tiles;
-  const size_t smem = (size_t)12 * cw * sizeof(float);
-  items_kernel<<<t_tiles, ray_tile, smem, (cudaStream_t)stream>>>(
-      (const float*)rays, (const float*)tmin0, (const int32_t*)tidx0,
-      (const float*)chunk_woop, (const int32_t*)idx, (const int32_t*)counts,
-      (const int32_t*)masks, cap, n_words, group, n_sub, cw, min_dst,
-      (float*)t_out, (int32_t*)tri_out);
+  const int n_items = t_tiles * cap * group;
+  cudaError_t err = cudaMemsetAsync(keys, 0xFF, (size_t)n_rays * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  if (n_items > 0) {
+    // A persistent grid: as many 64-thread blocks as the SMs hold at once.
+    const size_t smem = kStageAlign + (size_t)kStages * cw * 3 * sizeof(float4);
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, items_kernel, kItemThreads,
+                                                             smem)) != cudaSuccess)
+      return (int)err;
+    const int grid = sms * (per_sm > 0 ? per_sm : 1);
+    items_kernel<<<grid, kItemThreads, smem, st>>>(
+        (const float*)rays, (const float*)tmin0, (const float4*)woop_t, (const int32_t*)idx,
+        (const int32_t*)counts, (const int32_t*)masks, (const int32_t*)offsets, n_items, cap,
+        n_words, group, n_sub, ray_tile, cw, min_dst, (unsigned long long*)keys);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  items_final_kernel<<<(n_rays + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, st>>>(
+      (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0,
+      (const int32_t*)idx, n_rays, ray_tile, cap, group, cw, (float*)t_out, (int32_t*)tri_out);
   return (int)cudaGetLastError();
 }

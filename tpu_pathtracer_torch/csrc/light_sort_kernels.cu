@@ -6,26 +6,31 @@
 // into its own shared library with a plain C interface, called through
 // ctypes on PyTorch's current stream.  --fmad=false keeps every Woop and slab
 // expression rounded op for op like the plain-torch twins in
-// ops/chunk_intersect.py.  Each C entry returns cudaGetLastError() of its
-// launch.
+// ops/chunk_intersect.py.  Each C entry returns the first CUDA error of
+// its launches (0 when none).
 //
 // ---------------------------------------------------------------------------
-// B3  light_pdf_kernel
+// B3  light_pdf_kernel (+ light_pdf_sum_kernel)
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:1493
 //   (_kernel_light_pdf_items, via light_pdf_sum_chunks :1545).
 //   All-hits light pdf over the pierced light clusters: for each ray, the sum
 //   over every light of every cluster in its tile's worklist of
 //   t^2 |d|^2 k / |q2| where the Woop test passes and t >= min_dst.
-//   Bound on the H100: ALU (~45 float ops and two divides per (ray, light)
-//   pair; the inputs per cluster are a 6.6 KB block read by 128 rays).
-//   The Pallas grid walked (tile, cluster) items in order with one resident
-//   [RT, 1] sum per tile, seeded from the previous SMEM window (sum0) and
-//   patched for unvisited tiles; blocks here run in no order, so each block
-//   owns a 128-ray slice of one tile (512 blocks at 65,536 rays), walks its
-//   tile's worklist itself, stages each cluster's [12, 128] Woop block and
-//   k[128] in shared memory, and each thread keeps its ray's sum in a
-//   register and writes it once: no seeding, no patch, no atomics, so the
-//   result is the same from run to run.
+//   Bound on the H100: ALU (~65 lane ops and two divides per (ray, light)
+//   pair; the inputs per cluster are a 6.5 KB block read by every ray of the
+//   tile).  Design: a tile's worklist is cut into segments of ``seg``
+//   clusters, and each block owns one (128-ray slice, segment): the
+//   longest tile no longer sets the time, and the blocks of every tile
+//   spread over the SMs.  A block stages its clusters triangle-major (three
+//   float4 of Woop rows per light) with k[128] beside them, each by one
+//   cp.async.bulk (TMA) into a two-stage ring completed on an mbarrier, so
+//   the next cluster is in flight while the current one is walked.  Each
+//   thread sums its ray's terms over the segment in worklist order and
+//   writes the partial sum to scratch [n_seg, R]; a second pass adds a
+//   ray's partial sums in segment order.  No float atomics: the result is
+//   the same from run to run.  The Woop arithmetic is the twin's op for op,
+//   so the set of lights a ray passes is the same; only the order of the
+//   sum differs.  No tensor cores, for B2's reason (chunk_kernels.cu).
 //
 // B4  nearest_kernel
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:1673 (_nearest_kernel,
@@ -44,9 +49,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int kPdfThreads = 128;     // rays per light-pdf block (a tile slice)
+constexpr int kPdfStages = 2;        // B3's ring of staged clusters
+constexpr int kStageAlign = 128;     // bytes before the ring (the barriers)
+constexpr int kSumThreads = 256;     // rays per segment-sum block
 constexpr int kNearThreads = 256;    // rays per nearest-box block
 constexpr int kNearStage = 512;      // boxes staged in shared memory at once
 
@@ -59,61 +69,77 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-__global__ void light_pdf_kernel(
+__global__ void __launch_bounds__(kPdfThreads) light_pdf_kernel(
     const float* __restrict__ rays,          // [R, 8] (o, 1, d, 0)
-    const float* __restrict__ cluster_woop,  // [C, 12, cw]
+    const float4* __restrict__ woop_t,       // [C, cw, 3] triangle-major Woop rows
     const float* __restrict__ cluster_k,     // [C, cw]
     const int32_t* __restrict__ idx,         // [T, cap]
     const int32_t* __restrict__ counts,      // [T]
-    int cap, int cw, int ray_tile, float min_dst,
-    float* __restrict__ out) {               // [R]
-  extern __shared__ float sm[];  // [12][cw] Woop block, then k[cw]
-  float* w = sm;
-  float* k = sm + 12 * cw;
+    int n_rays, int cap, int cw, int ray_tile, int seg, float min_dst,
+    float* __restrict__ partial) {           // [n_seg, R]
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);                      // [kPdfStages]
+  float4* wring = reinterpret_cast<float4*>(smem + kStageAlign);          // [kPdfStages][cw * 3]
+  float* kring = reinterpret_cast<float*>(wring + (size_t)kPdfStages * cw * 3);  // [kPdfStages][cw]
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int tile = (int)(((size_t)blockIdx.x * blockDim.x) / ray_tile);
+  const int s0 = blockIdx.y * seg;
+  const int n = min(seg, counts[tile] - s0);
+  if (n <= 0) return;  // uniform over the block; the sum pass reads no such segment
+  const uint32_t w_bytes = (uint32_t)cw * 3 * sizeof(float4);
+  const uint32_t k_bytes = (uint32_t)cw * sizeof(float);
+  const int32_t* list = idx + (size_t)tile * cap + s0;
+
+  auto issue = [&](int c, int stage) {  // thread 0: stage cluster c
+    tpt::mbar_expect_tx(&bar[stage], w_bytes + k_bytes);
+    tpt::bulk_load(wring + (size_t)stage * cw * 3, woop_t + (size_t)c * cw * 3, w_bytes,
+                   &bar[stage]);
+    tpt::bulk_load(kring + (size_t)stage * cw, cluster_k + (size_t)c * cw, k_bytes, &bar[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kPdfStages; ++k) tpt::mbar_init(&bar[k]);
+    tpt::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) issue(list[0], 0);
+
   const float* ray = rays + i * 8;
   const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
   const float d0 = ray[4], d1 = ray[5], d2 = ray[6];
   const float dd = (d0 * d0 + d1 * d1) + d2 * d2;
   float acc = 0.0f;
-  const int n = counts[tile];
-  for (int s = 0; s < n; ++s) {
-    const int c = idx[(size_t)tile * cap + s];
-    __syncthreads();  // previous cluster's readers are done
-    const float* src = cluster_woop + (size_t)c * 12 * cw;
-    for (int e = threadIdx.x; e < 12 * cw; e += blockDim.x) w[e] = src[e];
-    for (int e = threadIdx.x; e < cw; e += blockDim.x) k[e] = cluster_k[(size_t)c * cw + e];
-    __syncthreads();
+  for (int c = 0; c < n; ++c) {
+    if (c + 1 < n && threadIdx.x == 0) {
+      tpt::fence_proxy_async();  // the stage's last readers passed __syncthreads
+      issue(list[c + 1], (c + 1) % kPdfStages);
+    }
+    tpt::mbar_wait(&bar[c % kPdfStages], (c / kPdfStages) & 1);
+    const float4* w = wring + (size_t)(c % kPdfStages) * cw * 3;
+    const float* k = kring + (size_t)(c % kPdfStages) * cw;
     float csum = 0.0f;
     for (int j = 0; j < cw; ++j) {
-      float p0 = o0 * w[0 * cw + j] + w[3 * cw + j];
-      p0 = p0 + o1 * w[1 * cw + j];
-      p0 = p0 + o2 * w[2 * cw + j];
-      float p1 = o0 * w[4 * cw + j] + w[7 * cw + j];
-      p1 = p1 + o1 * w[5 * cw + j];
-      p1 = p1 + o2 * w[6 * cw + j];
-      float p2 = o0 * w[8 * cw + j] + w[11 * cw + j];
-      p2 = p2 + o1 * w[9 * cw + j];
-      p2 = p2 + o2 * w[10 * cw + j];
-      float q0 = d0 * w[0 * cw + j];
-      q0 = q0 + d1 * w[1 * cw + j];
-      q0 = q0 + d2 * w[2 * cw + j];
-      float q1 = d0 * w[4 * cw + j];
-      q1 = q1 + d1 * w[5 * cw + j];
-      q1 = q1 + d2 * w[6 * cw + j];
-      float q2 = d0 * w[8 * cw + j];
-      q2 = q2 + d1 * w[9 * cw + j];
-      q2 = q2 + d2 * w[10 * cw + j];
-      const float t = -p2 / q2;
-      const float beta = p0 + t * q0;
-      const float gamma = p1 + t * q1;
-      if (beta >= 0.0f && gamma >= 0.0f && beta + gamma <= 1.0f && t >= min_dst) {
+      float t, q2;
+      if (tpt::woop_hit(w[3 * j], w[3 * j + 1], w[3 * j + 2], o0, o1, o2, d0, d1, d2, min_dst,
+                        &t, &q2)) {
         csum = csum + t * t * dd * k[j] / fabsf(q2);
       }
     }
     acc = acc + csum;
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
+  partial[(size_t)blockIdx.y * n_rays + i] = acc;
+}
+
+__global__ void light_pdf_sum_kernel(
+    const float* __restrict__ partial,  // [n_seg, R]
+    const int32_t* __restrict__ counts,  // [T]
+    int n_rays, int ray_tile, int seg,
+    float* __restrict__ out) {           // [R]
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const int n_seg = (counts[i / ray_tile] + seg - 1) / seg;
+  float acc = 0.0f;
+  for (int s = 0; s < n_seg; ++s) acc = acc + partial[(size_t)s * n_rays + i];
   out[i] = acc;
 }
 
@@ -180,14 +206,19 @@ __global__ void nearest_kernel(
 }  // namespace
 
 extern "C" int tpt_light_pdf(
-    const void* rays, const void* cluster_woop, const void* cluster_k,
-    const void* idx, const void* counts, int n_rays, int cap, int cw,
-    int ray_tile, float min_dst, void* out, void* stream) {
-  const size_t smem = (size_t)13 * cw * sizeof(float);
-  light_pdf_kernel<<<n_rays / kPdfThreads, kPdfThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)rays, (const float*)cluster_woop, (const float*)cluster_k,
-      (const int32_t*)idx, (const int32_t*)counts, cap, cw, ray_tile, min_dst,
-      (float*)out);
+    const void* rays, const void* woop_t, const void* cluster_k, const void* idx,
+    const void* counts, int n_rays, int cap, int cw, int ray_tile, int seg, float min_dst,
+    void* partial, void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_seg = (cap + seg - 1) / seg;
+  const size_t smem = kStageAlign + (size_t)kPdfStages * cw * (3 * sizeof(float4) + sizeof(float));
+  light_pdf_kernel<<<dim3(n_rays / kPdfThreads, n_seg), kPdfThreads, smem, st>>>(
+      (const float*)rays, (const float4*)woop_t, (const float*)cluster_k, (const int32_t*)idx,
+      (const int32_t*)counts, n_rays, cap, cw, ray_tile, seg, min_dst, (float*)partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  light_pdf_sum_kernel<<<(n_rays + kSumThreads - 1) / kSumThreads, kSumThreads, 0, st>>>(
+      (const float*)partial, (const int32_t*)counts, n_rays, ray_tile, seg, (float*)out);
   return (int)cudaGetLastError();
 }
 

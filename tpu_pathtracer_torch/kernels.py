@@ -2,7 +2,8 @@
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 into ``build/tpu_pathtracer_torch/lib<name>.so`` at the repository root on
-first use, and rebuilt when the hash of its source and the flags changes;
+first use, and rebuilt when the hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags changes;
 the libraries are loaded with ``ctypes`` and every launch goes to PyTorch's
 current stream.  Nothing here runs at import time, so the module imports on
 machines without CUDA.
@@ -38,10 +39,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES = {
     "chunk_kernels": {
         "tpt_activity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-        "tpt_items": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+        "tpt_items": [_P] * 8 + [_I] * 7 + [_F] + [_P] * 4,
     },
     "light_sort_kernels": {
-        "tpt_light_pdf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+        "tpt_light_pdf": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
         "tpt_nearest": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
     },
     "mode_kernels": {
@@ -65,10 +66,14 @@ def build() -> dict:
     "built", "seconds"}}; each compiler's output (register and shared-memory
     use per kernel) is kept in ``nvcc_<name>.log`` beside the library."""
     out, procs = {}, {}
+    headers = b""
+    for header in sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, header), "rb") as f:
+            headers += f.read()
     for name in LIBRARIES:
         src = os.path.join(_CSRC, name + ".cu")
         with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            digest = hashlib.sha256(f.read() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         stamp = so + ".sha256"
         if os.path.exists(so) and os.path.exists(stamp):
@@ -168,18 +173,23 @@ def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, wan
 
 
 def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
-    """Launch B2 (contract: ``ops.chunk_intersect.run_items_plain``)."""
+    """Launch B2 (contract: ``ops.chunk_intersect.run_items_plain``).  The
+    kernel reads a triangle-major copy of ``chunk_woop`` ([Cpad, cw, 12],
+    made here) and the unit prefix sum of ``item_unit_offsets``."""
+    from .ops.chunk_intersect import item_unit_offsets
+
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
     n_words = masks.shape[2]
     cpad, _, cw = chunk_woop.shape
     ray_tile = r // t_tiles if t_tiles else 0
-    if (t_tiles == 0 or r % t_tiles or ray_tile > 1024 or ray_tile % n_sub
-            or cpad % group or n_words * 4 < group):
+    if (t_tiles == 0 or r % t_tiles or ray_tile % n_sub or not 1 <= n_sub <= 8
+            or cpad % group or n_words * 4 < group or cw % 4 or t_tiles * cap * group >= 2**31):
         raise ValueError(
-            f"items: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words}"
+            f"items: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words} cw={cw}"
         )
+    _check_key_bound(min_dst, cap * group * cw, "items")
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(tmin0, "tmin0", torch.float32, (r,), dev)
     _check(tidx0, "tidx0", torch.int32, (r,), dev)
@@ -187,38 +197,49 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
     _check(masks, "masks", torch.int32, (t_tiles, cap, n_words), dev)
+    woop_t = chunk_woop.transpose(1, 2).contiguous()
+    offsets = item_unit_offsets(counts, masks, group, n_sub)
+    keys = torch.empty((r,), dtype=torch.int64, device=dev)
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = library("chunk_kernels").tpt_items(
-            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(chunk_woop), _ptr(idx),
-            _ptr(counts), _ptr(masks), r, t_tiles, cap, n_words, group, n_sub, cw,
-            float(min_dst), _ptr(t_out), _ptr(tri_out),
+            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(woop_t), _ptr(idx), _ptr(counts),
+            _ptr(masks), _ptr(offsets), r, t_tiles, cap, n_words, group, n_sub, cw,
+            float(min_dst), _ptr(keys), _ptr(t_out), _ptr(tri_out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "items")
     return t_out, tri_out
 
 
+# Clusters per B3 block: a tile's worklist is cut into segments this long.
+PDF_SEGMENT = 4
+
+
 def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
-    """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``)."""
+    """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``).
+    The kernel reads a triangle-major copy of ``cluster_woop`` ([C, cw, 12],
+    made here) and writes per-segment partial sums to scratch [n_seg, R]."""
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
     c, _, cw = cluster_woop.shape
     ray_tile = r // t_tiles if t_tiles else 0
-    if t_tiles == 0 or r % t_tiles or ray_tile % 128 or c == 0:
-        raise ValueError(f"light_pdf: R={r} T={t_tiles} clusters={c}")
+    if t_tiles == 0 or r % t_tiles or ray_tile % 128 or c == 0 or cap == 0 or cw % 4:
+        raise ValueError(f"light_pdf: R={r} T={t_tiles} clusters={c} cap={cap} cw={cw}")
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(cluster_woop, "cluster_woop", torch.float32, (c, 12, cw), dev)
     _check(cluster_k, "cluster_k", torch.float32, (c, cw), dev)
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
+    woop_t = cluster_woop.transpose(1, 2).contiguous()
+    partial = torch.empty((-(-cap // PDF_SEGMENT), r), dtype=torch.float32, device=dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = library("light_sort_kernels").tpt_light_pdf(
-            _ptr(rays), _ptr(cluster_woop), _ptr(cluster_k), _ptr(idx), _ptr(counts),
-            r, cap, cw, ray_tile, float(min_dst), _ptr(out),
+            _ptr(rays), _ptr(woop_t), _ptr(cluster_k), _ptr(idx), _ptr(counts),
+            r, cap, cw, ray_tile, PDF_SEGMENT, float(min_dst), _ptr(partial), _ptr(out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "light_pdf")
@@ -246,7 +267,7 @@ def nearest(rays, box_min, box_max, min_dst):
 
 
 def _check_key_bound(min_dst, n_keys, name):
-    """B5 and B6 order candidates by 64-bit keys whose high word is the bits
+    """B2, B5 and B6 order candidates by 64-bit keys whose high word is the bits
     of t: that orders like the floats only for t > 0 (t >= min_dst), and
     the low word must hold every triangle id or test-order index."""
     if not min_dst > 0 or n_keys >= 2**31:

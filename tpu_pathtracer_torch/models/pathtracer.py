@@ -24,8 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from tpu_pathtracer.config import IntersectTuning, RenderConfig
-
+from ..config import IntersectTuning, RenderConfig
 from ..ops import bsdf, sampling, texture
 from ..ops.chunk_intersect import (
     RAY_TILE,

@@ -65,8 +65,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tpu_pathtracer.config import IntersectTuning
-
+from ..config import IntersectTuning
 from .intersect import Hit, winner_barycentrics
 
 RAY_TILE = 512  # rays per tile
@@ -300,6 +299,27 @@ def run_items_plain(
             t = torch.where(better, cmin_t, t)
             tri = torch.where(better, (chunk[:, None] * cw + carg).to(torch.int32), tri)
     return t.reshape(r), tri.reshape(r)
+
+
+def item_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_sub: int):
+    """The B2 kernel's flattened unit list, in compressed form.
+
+    A unit is one (tile, slot, chunk, sub-tile) whose mask bit is set, with
+    slot < counts[tile]; the units of chunk item (tile, slot, g) are its set
+    sub-tile bits in ascending order, and items are numbered in test order,
+    item = (tile * cap + slot) * group + g.  Returns the inclusive prefix
+    sum of the items' unit counts, [T * cap * group] int32: the units of
+    item j are numbers offsets[j-1] .. offsets[j]-1, and offsets[-1] is the
+    total.  Pure tensor code with no copy to or from the host (a blocking
+    copy would make the host wait for the device at every launch)."""
+    t_tiles, cap, _ = masks.shape
+    g = torch.arange(group, device=masks.device)
+    byte = (masks[:, :, g // 4] >> (8 * (g % 4)).to(torch.int32)) & ((1 << n_sub) - 1)
+    live = torch.arange(cap, device=masks.device)[None, :] < counts[:, None]
+    byte = torch.where(live[:, :, None], byte, torch.zeros_like(byte))
+    byte = byte - ((byte >> 1) & 0x55)  # popcount of a byte, two bits at a time
+    byte = (byte & 0x33) + ((byte >> 2) & 0x33)
+    return torch.cumsum(((byte + (byte >> 4)) & 0x0F).reshape(-1), 0, dtype=torch.int32)
 
 
 def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):

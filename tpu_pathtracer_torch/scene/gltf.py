@@ -4,11 +4,11 @@
 The host pipeline is the JAX package's numpy code, kept operation for
 operation so every array comes out bit-equal to ``parse_gltf_scene`` there
 (pinned by tests/test_torch_scene.py); only the final hand-off builds torch
-tensors instead of jax arrays.  The numpy helpers that live in jax-importing
-modules of the JAX package (``tri_capacity``, ``build_woop``,
-``build_chunk_woop``, the TRS/normal-transform helpers, ``light_clusters``
-and ``quad_pool``) are copied here; the spatial builders come from the
-jax-free ``tpu_pathtracer.scene.accel`` (native C++ packer first).
+tensors instead of jax arrays.  The port owns every host module it runs:
+the numpy helpers (``tri_capacity``, ``build_woop``, ``build_chunk_woop``,
+the TRS/normal-transform helpers, ``light_clusters`` and ``quad_pool``) are
+here, the spatial builders in ``scene/accel.py`` (the port's native C++
+packer first, ``scene/native.py``) and the HDR codec in ``utils/hdr.py``.
 
 ``config.use_env_map`` adds the environment map to the atlas and
 ``config.add_light_triangle`` the extra camera-space light triangle, as the
@@ -26,17 +26,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tpu_pathtracer.config import DEFAULT_CONFIG, RenderConfig
-from tpu_pathtracer.scene import native
-from tpu_pathtracer.scene.accel import (
-    LEAF_SIZE,
-    build_leaves,
-    chunk_aabbs,
-    morton_order,
-    sah_chunk_order,
-)
-
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..utils.hdr import load_hdr_rgba_ldr
+from . import native
 from . import types as T
+from .accel import LEAF_SIZE, build_leaves, chunk_aabbs, morton_order, sah_chunk_order
 
 _COMPONENT_DTYPES = {5121: np.uint8, 5123: np.uint16, 5125: np.uint32}
 
@@ -197,8 +191,6 @@ def _load_image_rgba(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         magic = f.read(10)
     if magic.startswith(b"#?RADIANCE") or magic.startswith(b"#?RGBE"):
-        from tpu_pathtracer.utils.hdr import load_hdr_rgba_ldr
-
         return load_hdr_rgba_ldr(path)
     from PIL import Image
 
@@ -212,8 +204,6 @@ def _decode_image_bytes(data: bytes) -> np.ndarray:
 
     if data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE"):
         import tempfile
-
-        from tpu_pathtracer.utils.hdr import load_hdr_rgba_ldr
 
         with tempfile.NamedTemporaryFile(suffix=".hdr") as tmp:
             tmp.write(data)
