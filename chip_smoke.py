@@ -10,7 +10,9 @@ It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc`` (one
 plain-torch twin on the inputs of the real paths, 65,536-ray batches:
 
   b1, b2, cascade  the enclosed atrium (~218k triangles): activity and item
-                   kernels, and the cascade against the dense sweep;
+                   kernels, and the cascade against the dense sweep; B1 also
+                   at the super-block gate's width (4 columns) and on the
+                   lit-banner atrium's 193 light-cluster boxes;
   b4               the first-entered-group kernel on the atrium's groups;
   b5, b6, b7       the dense-grid, slot-grid and per-ray-group-bits kernels
                    of the intersector's modes on the atrium's rays;
@@ -77,12 +79,14 @@ CLOCK_HZ = 1.98e9
 # and sums, 4 for beta and gamma, 8 for the tests, ~6 for the IEEE divide,
 # 4 for the select and the minimum.  A light-pdf pair: the same test and the
 # term t*t*|d|^2*k/|q2| with its second divide and sum, ~65.  A slab pair
-# (csrc/chunk_kernels.cu activity_kernel): 12 differences and products, 10
-# NaN-propagating min/max of 3 operations each, ~8 for the tests and the
-# entry minimum.
+# (csrc/slab.cuh slab_interval + csrc/chunk_kernels.cu activity_kernel): 12
+# differences and products, 10 NaN-propagating min/max, ~8 for the tests and
+# the entry minimum.  A NaN-propagating min/max counts as ONE operation: the
+# card has it as one instruction (min.NaN.f32 / max.NaN.f32), and a bound is
+# the least the card could do, whatever the source spells out.
 WOOP_OPS = 55
 PDF_OPS = 65
-SLAB_OPS = 50
+SLAB_OPS = 30
 
 
 def emit(phase, **kw):
@@ -96,6 +100,24 @@ def sync_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs for a kernel
+    shorter than the host's time to launch it: the card first spins for ~20
+    ms while the host queues every launch, so the launches then run back to
+    back and the events time the device, not the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.02 * CLOCK_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -212,41 +234,62 @@ def make_inputs(tmp, lit_banners=False):
     return path, textured, t_gen, scene, {"primary": (o, d), "secondary": (o2, d2)}
 
 
-def phase_b1(scene, rays_sets):
-    """B1 kernel vs its twin: unbounded, t-bounded, gated, with sub-tile
-    entries.  m8 / ent / sub_ent must be exactly equal (both sides round the
-    same IEEE ops in the same order: the kernel is built with --fmad=false)."""
-    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+def check_b1(rays_name, mode, args):
+    """One B1 launch against its twin on the same inputs: m8, ent and (when
+    asked) sub_ent exactly equal.  Returns the max abs error of ent."""
     from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    mk, ek, sk = kernels.activity(*args)
+    mp, ep, sp = ci.tile_chunk_activity_plain(*args)
+    torch.cuda.synchronize()
+    bad_m8 = int((mk != mp).sum())
+    bad_ent = int((ek != ep).sum())
+    bad_sub = int((sk != sp).sum()) if sp is not None else 0
+    fin = torch.isfinite(ep)
+    err = float((ek[fin] - ep[fin]).abs().max()) if fin.any() else 0.0
+    emit("b1", rays=rays_name, mode=mode, columns=args[1].shape[0], n_sub=args[7],
+         active_pairs=int((mp != 0).sum()), m8_mismatch=bad_m8, ent_mismatch=bad_ent,
+         sub_mismatch=bad_sub, max_abs_err=err)
+    if bad_m8 or bad_ent or bad_sub:
+        raise AssertionError(f"B1 kernel disagrees with its twin ({rays_name}, {mode})")
+    return err
+
+
+def phase_b1(scene, rays_sets):
+    """B1 kernel vs its twin at the shapes the render launches: the chunk
+    boxes unbounded, t-bounded, gated, and gated and t-bounded with sub-tile
+    entries (n_sub 8), and the super-block gate itself (one box per 512
+    chunks, n_sub 1), unbounded and t-bounded.  m8 / ent / sub_ent must be
+    exactly equal (both sides round the same IEEE ops in the same order: the
+    kernel is built with --fmad=false).  Returns (max abs error, {shape:
+    timing args} on the secondaries)."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     cmin, cmax = scene.chunk_aabb_min, scene.chunk_aabb_max
-    worst = 0.0
+    gmin, gmax = ci.group_boxes(cmin, cmax, ci.ACT_COLS)
+    worst, timing = 0.0, None
     for name, (o, d) in rays_sets.items():
         rays = ci.pack_rays(o, d)
         tb = ci.closest_hit_chunks(o, d, scene.chunk_woop, cmin, cmax, scene.woop_rows, EPS).t
         cbits = ci.super_block_bits(rays, cmin, cmax, EPS, ci.RAY_TILE)
-        for mode, tbest, gate, want in (
-            ("unbounded", None, None, False),
-            ("bounded", tb, None, False),
-            ("gated", None, cbits, False),
-            ("gated_bounded_sub", tb, cbits, True),
-        ):
-            args = (rays, cmin, cmax, tbest, gate, EPS, ci.RAY_TILE, 8, want)
-            mk, ek, sk = kernels.activity(*args)
-            mp, ep, sp = ci.tile_chunk_activity_plain(*args)
-            torch.cuda.synchronize()
-            bad_m8 = int((mk != mp).sum())
-            bad_ent = int((ek != ep).sum())
-            bad_sub = int((sk != sp).sum()) if want else 0
-            fin = torch.isfinite(ep)
-            err = float((ek[fin] - ep[fin]).abs().max()) if fin.any() else 0.0
-            worst = max(worst, err)
-            emit("b1", rays=name, mode=mode, active_pairs=int((mp != 0).sum()),
-                 m8_mismatch=bad_m8, ent_mismatch=bad_ent, sub_mismatch=bad_sub,
-                 max_abs_err=err)
-            if bad_m8 or bad_ent or bad_sub:
-                raise AssertionError(f"B1 kernel disagrees with its twin ({name}, {mode})")
-    return worst
+        cases = {
+            "unbounded": (rays, cmin, cmax, None, None, EPS, ci.RAY_TILE, 8, False),
+            "bounded": (rays, cmin, cmax, tb, None, EPS, ci.RAY_TILE, 8, False),
+            "gated": (rays, cmin, cmax, None, cbits, EPS, ci.RAY_TILE, 8, False),
+            "gated_bounded": (rays, cmin, cmax, tb, cbits, EPS, ci.RAY_TILE, 8, False),
+            "gated_bounded_sub": (rays, cmin, cmax, tb, cbits, EPS, ci.RAY_TILE, 8, True),
+            "gate": (rays, gmin, gmax, None, None, EPS, ci.RAY_TILE, 1, False),
+            "gate_bounded": (rays, gmin, gmax, tb, None, EPS, ci.RAY_TILE, 1, False),
+        }
+        for mode, args in cases.items():
+            worst = max(worst, check_b1(name, mode, args))
+        if name == "secondary":
+            # The three launches of a render iteration: the gate, the gated
+            # initial pass and a gated t-bounded recheck.
+            timing = {"gate": cases["gate"], "initial": cases["gated"],
+                      "recheck": cases["gated_bounded"]}
+    return worst, timing
 
 
 def worklists(scene, o, d):
@@ -990,7 +1033,7 @@ def main():
         path, textured, gen_seconds, scene, rays_sets = make_inputs(tmp)
         if not textured:
             print("PIL is not installed: the atriums are rendered untextured", flush=True)
-        b1_err = phase_b1(scene, rays_sets)
+        b1_err, b1_shapes = phase_b1(scene, rays_sets)
         b2_err, b2_args, b2_units = phase_b2(scene, rays_sets)
         brutes = phase_cascade(scene, rays_sets)
         b4_err, b4_args = phase_b4(scene, rays_sets)
@@ -1003,12 +1046,16 @@ def main():
         # activity pass, the residual item pass, the first-entered-group
         # search, the dense grid on the initial activity, the residual slot
         # pass and the per-ray group bits on sorted atrium secondaries.  B2
-        # and B6 run on the same worklist in turns (B2, B6, B6, B2).
-        o, d = rays_sets["secondary"]
-        rays = ci.pack_rays(o, d)
-        cmin, cmax = scene.chunk_aabb_min, scene.chunk_aabb_max
-        cbits = ci.super_block_bits(rays, cmin, cmax, EPS, ci.RAY_TILE)
-        b1_args = (rays, cmin, cmax, None, cbits, EPS, ci.RAY_TILE, 8, False)
+        # and B6 run on the same worklist in turns (B2, B6, B6, B2).  B1 is
+        # also timed at the gate's 4 columns and as a gated t-bounded
+        # recheck, beside a one-element fill (a kernel with nothing to do).
+        b1_args = b1_shapes["initial"]
+        one = torch.zeros(1, device=DEV)
+        b1_ms = {shape: queued_ms(lambda: kernels.activity(*args), 20)
+                 for shape, args in b1_shapes.items()}
+        emit("b1_timing", **{f"{k}_ms": v for k, v in b1_ms.items()},
+             **{f"{k}_columns": args[1].shape[0] for k, args in b1_shapes.items()},
+             empty_ms=queued_ms(one.zero_, 20))
         turns = [sync_ms(lambda: kernels.items(*b2_args), 20),
                  sync_ms(lambda: kernels.slots(*b6_args), 20),
                  sync_ms(lambda: kernels.slots(*b6_args), 20),
@@ -1016,8 +1063,7 @@ def main():
         emit("b2_vs_b6", worklist="secondary residual", set_bits=b2_units, b2_ms=[turns[0], turns[3]],
              b6_ms=[turns[1], turns[2]])
         times = {
-            "b1": (sync_ms(lambda: kernels.activity(*b1_args), 20),
-                   sync_ms(lambda: ci.tile_chunk_activity_plain(*b1_args), 5)),
+            "b1": (b1_ms["initial"], sync_ms(lambda: ci.tile_chunk_activity_plain(*b1_args), 5)),
             "b2": ((turns[0] + turns[3]) / 2, sync_ms(lambda: ci.run_items_plain(*b2_args), 3)),
             "b4": (sync_ms(lambda: kernels.nearest(*b4_args), 20),
                    sync_ms(lambda: ci.nearest_box_ids_plain(*b4_args), 5)),
@@ -1028,13 +1074,17 @@ def main():
                    sync_ms(lambda: ci.ray_group_bools_plain(*b7_args), 5)),
         }
         work = kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args)
-        del scene, rays_sets, rays, cbits, brutes, b1_args, b2_args, b4_args, b5_args, b6_args, b7_args
+        del scene, rays_sets, brutes, b1_shapes, b1_args, b2_args, b4_args, b5_args, b6_args, b7_args
         torch.cuda.empty_cache()
 
         # The lit-banner atrium: B3 on the light pdf of its real bounces.
         lit_path, _, lit_gen, scene, rays_sets = make_inputs(tmp, lit_banners=True)
         if scene.lights.cluster_woop.shape[0] <= 4 or scene.lights.capacity <= 512:
             raise AssertionError("the lit-banner atrium must need the cluster pdf")
+        for name, (o, d) in rays_sets.items():  # B1 at the light pdf's shape
+            b1_err = max(b1_err, check_b1(name, "light_clusters", (
+                ci.pack_rays(o, d), scene.lights.cluster_min.contiguous(),
+                scene.lights.cluster_max.contiguous(), None, None, EPS, ci.RAY_TILE, 1, False)))
         b3_err, b3_args = phase_b3(scene, rays_sets)
         times["b3"] = (sync_ms(lambda: kernels.light_pdf(*b3_args), 20),
                        sync_ms(lambda: ci.run_light_pdf_plain(*b3_args), 3))
@@ -1042,7 +1092,8 @@ def main():
         work["b3"] = (int(counts.sum()) * ci.RAY_TILE * cluster_woop.shape[2], PDF_OPS,
                       nbytes(rays, cluster_woop, cluster_k, idx, counts) + 4 * rays.shape[0])
         emit("timing", **{f"{k}_ms": v[0] for k, v in times.items()},
-             **{f"{k}_plain_ms": v[1] for k, v in times.items()})
+             **{f"{k}_plain_ms": v[1] for k, v in times.items()},
+             b1_gate_ms=b1_ms["gate"], b1_recheck_ms=b1_ms["recheck"])
         del scene, rays_sets, b3_args, rays, cluster_woop, cluster_k, idx, counts
         torch.cuda.empty_cache()
 

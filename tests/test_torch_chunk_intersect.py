@@ -314,3 +314,212 @@ def test_torch_item_units_cover_every_bit_and_match_twin(n_sub):
         assert units == every and len(units) == int(offsets[-1]) >= 20
     t, tri = _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, n_sub)
     assert torch.equal(t, want_t) and torch.equal(tri, want_tri)
+
+
+def _slot_kernel_parts(offsets, masks, group, n_sub, n_blocks, n_warps, n_parts):
+    """The B6 kernel's walk, block by block, in plain Python (``slots_kernel``
+    in csrc/mode_kernels.cu): the unit count split into equal contiguous
+    ranges; the producer's walk over the slots with units in a block's range
+    (a binary search for the first, a galloping search for each next one over
+    the prefix sum); and the consumers' dealing of each unit's parts to the
+    warps, part h of unit u to warp ((u - lo) * n_parts + h) % n_warps.
+    Returns the (slot, chunk, sub-tile, part) taken, in block, slot, warp
+    order, and the slots each block staged."""
+    off = offsets.tolist()
+    n_slots = len(off)
+    words = masks.reshape(n_slots, -1).tolist()
+    total = off[-1]
+    taken, staged = [], []
+    for b in range(n_blocks):
+        lo, hi = total * b // n_blocks, total * (b + 1) // n_blocks
+        if lo >= hi:
+            continue
+        a, z = 0, n_slots - 1
+        while a < z:
+            m = (a + z) // 2
+            a, z = (a, m) if off[m] > lo else (m + 1, z)
+        slot, slots = a, []
+        while True:  # the producer
+            before, after = (off[slot - 1] if slot else 0), off[slot]
+            slots.append((slot, before))
+            if after >= hi:
+                break
+            a, z, step = slot, slot + 1, 1
+            while off[z] <= after:
+                a, step = z, step * 2
+                z = min(slot + step, n_slots - 1)
+            while z - a > 1:
+                m = (a + z) // 2
+                a, z = (a, m) if off[m] > after else (m, z)
+            slot = z
+        staged.append([s for s, _ in slots])
+        for slot, u0 in slots:  # the consumers
+            for warp in range(n_warps):
+                u = u0
+                for g in range(group):
+                    bits = ((words[slot][g // 4] & 0xFFFFFFFF) >> (8 * (g % 4))) & ((1 << n_sub) - 1)
+                    while bits:
+                        st = (bits & -bits).bit_length() - 1
+                        if lo <= u < hi:
+                            taken += [(slot, g, st, h) for h in range(n_parts)
+                                      if ((u - lo) * n_parts + h) % n_warps == warp]
+                        bits &= bits - 1
+                        u += 1
+    return taken, staged
+
+
+@pytest.mark.parametrize("n_sub", [1, 2, 4])
+def test_torch_slot_units_cover_every_bit_and_match_twin(n_sub):
+    """``slot_unit_offsets`` and the B6 kernel's walk over it: for any number
+    of blocks, warps and parts, every part of every set mask bit of a slot
+    below its tile's count is taken exactly once, a block stages only slots
+    with units, in ascending order, and the evaluation driven by the units
+    is bit-equal to ``run_slots_plain``.  The worklist is that of the B2
+    unit test: 4 tiles, one with no slot and one with 3, so the walk crosses
+    dead slots and a dead tile."""
+    _, _, _, _, cmin, cmax, cw = _scene(2000, seed=0)
+    group = 2
+    cg = -(-cw.shape[0] // group)
+    chunk_woop = ci._nan_pad(_t(cw), cg * group)
+    cmin_t, cmax_t = ci._nan_pad(_t(cmin), cg * group), ci._nan_pad(_t(cmax), cg * group)
+    o, d = _rays(np.random.default_rng(1), 512, 8.0)
+    rays = ci.pack_rays(_t(o), _t(d))
+    m8, ent, _ = ci.tile_chunk_activity(rays, cmin_t, cmax_t, None, None, EPS, 128, n_sub)
+    ga, ge = ci._group_stats(m8 != 0, ent, group)
+    idx, counts, _ = ci._worklist(ga, ge, cg - 1)
+    cap = cg - 1
+    counts = torch.clamp_max(counts, torch.tensor([cap, 0, 3, cap], dtype=torch.int32))
+    masks = torch.take_along_dim(ci._pack_group_masks(m8, group), idx[:, :, None].long(), dim=1)
+    rs = np.random.default_rng(2)
+    tmin0 = _t(np.where(rs.random(512) < 0.5, np.inf, rs.uniform(1, 12, 512)).astype(np.float32))
+    tidx0 = _t(rs.integers(0, 1000, 512).astype(np.int32))
+
+    offsets = ci.slot_unit_offsets(counts, masks, group, n_sub)
+    assert offsets.dtype == torch.int32 and offsets.shape == (4 * cap,)
+    # The same units as B2's list, counted per slot.
+    items = ci.item_unit_offsets(counts, masks, group, n_sub)
+    assert torch.equal(offsets, items[group - 1::group])
+    live = (torch.arange(cap)[None, :] < counts[:, None]).reshape(-1).tolist()
+    words = masks.reshape(4 * cap, -1).tolist()
+    every = [(slot, g, st) for slot in range(4 * cap) if live[slot] for g in range(group)
+             for st in range(n_sub)
+             if ((words[slot][g // 4] & 0xFFFFFFFF) >> (8 * (g % 4))) >> st & 1]
+    assert len(every) == int(offsets[-1]) >= 20
+    for n_blocks, n_warps, n_parts in ((1, 12, 2), (7, 3, 1), (10_000, 12, 4), (5, 8, 4)):
+        taken, staged = _slot_kernel_parts(offsets, masks, group, n_sub, n_blocks, n_warps, n_parts)
+        assert sorted(taken) == [u + (h,) for u in every for h in range(n_parts)]
+        for slots in staged:
+            assert slots == sorted(set(slots)) and all(live[s] for s in slots)
+    units = sorted({((slot * group + g), st) for slot, g, st, _ in taken})
+    t, tri = _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, n_sub)
+    want_t, want_tri = ci.run_slots_plain(rays, tmin0, tidx0, chunk_woop, idx, counts, masks,
+                                          EPS, group, n_sub)
+    assert torch.isfinite(want_t).sum() > 30
+    assert torch.equal(t, want_t) and torch.equal(tri, want_tri)
+
+
+def test_torch_slot_units_empty_worklist():
+    """A worklist with no unit: every count 0, or counts with all-zero
+    masks.  The prefix sum ends at 0, so no block of the B6 walk has a range
+    and none reads a slot; a zero-width worklist has no entry at all, and the
+    twin returns (tmin0, tidx0) unchanged."""
+    masks = torch.full((3, 5, 1), -1, dtype=torch.int32)
+    zero = torch.zeros(3, dtype=torch.int32)
+    off = ci.slot_unit_offsets(zero, masks, 2, 4)
+    assert off.shape == (15,) and int(off[-1]) == 0
+    assert _slot_kernel_parts(off, masks, 2, 4, 7, 12, 2) == ([], [])
+    off = ci.slot_unit_offsets(torch.full((3,), 5, dtype=torch.int32), torch.zeros_like(masks), 2, 4)
+    assert int(off[-1]) == 0
+    assert ci.slot_unit_offsets(zero, masks[:, :0], 2, 4).shape == (0,)
+    # Bits above n_sub and bytes past the group are not units.
+    off = ci.slot_unit_offsets(torch.ones(3, dtype=torch.int32), masks, 2, 4)
+    assert off.tolist()[::5] == [8, 16, 24]
+    rays = ci.pack_rays(torch.zeros(384, 3), torch.ones(384, 3))
+    tmin0 = torch.full((384,), 2.5)
+    tidx0 = torch.arange(384, dtype=torch.int32)
+    t, tri = ci.run_slots(rays, tmin0, tidx0, torch.zeros(4, 12, 128),
+                          torch.zeros((3, 5), dtype=torch.int32), zero, masks, EPS, 2, 4)
+    assert torch.equal(t, tmin0) and torch.equal(tri, tidx0)
+
+
+@pytest.mark.parametrize("n_sub", [1, 8])
+@pytest.mark.parametrize("columns", [1, 4, 200])
+def test_torch_activity_twin_matches_jax_at_kernel_edges(columns, n_sub):
+    """B1 twin vs the Pallas activity kernel (interpret mode) at the shapes
+    the CUDA kernel treats specially: a single column and the super-block
+    gate's 4 columns (one step of a thread), a column count that is not a
+    multiple of the kernel's 128-column block, and n_sub 1 and 8 (a sub-tile
+    of whole warps against 16-ray sub-tiles), t-bounded, with NaN boxes among
+    the columns.  m8, ent and sub_ent must be exactly equal."""
+    _, _, _, _, cmin, cmax, _ = _scene(1100, seed=7)
+    real = np.nonzero(np.isfinite(cmin[:, 0]))[0]
+    rs = np.random.default_rng(11)
+    pick = rs.choice(real, size=columns, replace=columns > len(real))
+    bmin, bmax = cmin[pick].copy(), cmax[pick].copy()
+    if columns > 4:
+        bmin[5::17] = np.nan
+        bmax[5::17] = np.nan
+    o, d = _rays(rs, 256, 8.0)
+    d[:8, 1] = 0.0  # a zero direction component
+    rays = np.concatenate([o, np.ones((256, 1), np.float32), d, np.zeros((256, 1), np.float32)], 1)
+    tbest = rs.uniform(0.5, 12.0, size=256).astype(np.float32)
+    _, ent_j, m8_j, sub_j = jpi.tile_chunk_activity(
+        jnp.asarray(rays), jnp.asarray(bmin), jnp.asarray(bmax), EPS, ray_tile=128,
+        interpret=True, tbest=jnp.asarray(tbest), n_sub=n_sub, want_sub_ent=True,
+    )
+    m8, ent, sub = ci.tile_chunk_activity(_t(rays), _t(bmin), _t(bmax), _t(tbest), None, EPS, 128,
+                                          n_sub=n_sub, want_sub=True)
+    assert m8.shape == (2, columns) and sub.shape == (2, n_sub, columns)
+    np.testing.assert_array_equal(m8.numpy(), np.asarray(m8_j))
+    np.testing.assert_array_equal(ent.numpy(), np.asarray(ent_j))
+    np.testing.assert_array_equal(sub.numpy(), np.asarray(sub_j))
+    assert (m8.numpy() != 0).any()
+
+
+def test_torch_activity_twin_matches_jax_all_gated_off():
+    """B1 twin vs the Pallas activity kernel (interpret mode) under a gate
+    with every 512-column block off for every tile, over two column blocks
+    (600 columns): m8 all 0, ent and sub_ent all +inf, equal to JAX's."""
+    rs = np.random.default_rng(12)
+    bmin = rs.uniform(-5, 4, size=(600, 3)).astype(np.float32)
+    bmax = bmin + 2.0
+    o, d = _rays(rs, 256, 8.0)
+    rays = np.concatenate([o, np.ones((256, 1), np.float32), d, np.zeros((256, 1), np.float32)], 1)
+    gate = np.zeros((2, 1), np.int32)
+    _, ent_j, m8_j, sub_j = jpi.tile_chunk_activity(
+        jnp.asarray(rays), jnp.asarray(bmin), jnp.asarray(bmax), EPS, ray_tile=128,
+        interpret=True, coarse_bits=jnp.asarray(gate), n_sub=8, want_sub_ent=True,
+    )
+    m8, ent, sub = ci.tile_chunk_activity(_t(rays), _t(bmin), _t(bmax), None, _t(gate), EPS, 128,
+                                          n_sub=8, want_sub=True)
+    np.testing.assert_array_equal(m8.numpy(), np.asarray(m8_j))
+    np.testing.assert_array_equal(ent.numpy(), np.asarray(ent_j))
+    np.testing.assert_array_equal(sub.numpy(), np.asarray(sub_j))
+    assert not m8.numpy().any() and np.isinf(ent.numpy()).all() and np.isinf(sub.numpy()).all()
+    # The same boxes ungated are active: the gate is what cleared them.
+    assert (ci.tile_chunk_activity(_t(rays), _t(bmin), _t(bmax), None, None, EPS, 128)[0] != 0).any()
+
+
+def test_torch_triangle_major_copy_is_made_once():
+    """``kernels.triangle_major``: the [C, cw, 12] copy the B2, B3 and B6
+    launchers stage from is made at a tensor's first launch and found again
+    afterwards, remade after an in-place write, and dropped with the tensor."""
+    import gc
+
+    from tpu_pathtracer_torch import kernels
+
+    woop = torch.arange(2 * 12 * 8, dtype=torch.float32).reshape(2, 12, 8)
+    first = kernels.triangle_major(woop)
+    assert first.shape == (2, 8, 12) and first.is_contiguous()
+    assert torch.equal(first, woop.transpose(1, 2))
+    assert kernels.triangle_major(woop) is first
+    other = kernels.triangle_major(woop.clone())
+    assert other is not first and torch.equal(other, first)
+    woop[0, 0, 0] = -1.0
+    again = kernels.triangle_major(woop)
+    assert again is not first and float(again[0, 0, 0]) == -1.0
+    key = id(woop)
+    assert key in kernels._TRIANGLE_MAJOR
+    del woop
+    gc.collect()
+    assert key not in kernels._TRIANGLE_MAJOR

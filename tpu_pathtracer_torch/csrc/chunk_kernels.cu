@@ -18,14 +18,28 @@
 //   chunk AABB with the per-ray far bound tbest; per 64-ray sub-tile the
 //   minimum entry distance; packed sub-tile bits m8, tile entry ent and,
 //   when asked, the per-sub-tile entries.
-//   Bound on the H100: ALU.  Each (ray, chunk) pair is ~25 float ops on
-//   7 floats of ray state and 6 of box; the outputs are 8 bytes per
-//   (tile, chunk).  Design: one block per (ray tile, 128 chunk columns);
-//   the tile's rays (origin, reciprocal direction, tbest) are staged once in
-//   shared memory and read as broadcasts, each thread owns one chunk column
-//   and keeps its box in registers, so device memory traffic is one pass
-//   over the rays per column block and one write per output.  The coarse
-//   gate is one bit per (tile, 512-column block), uniform over a block.
+//   Bound on the H100: ALU.  A (ray, chunk) pair is ~30 lane operations (12
+//   differences and products, 10 NaN-propagating min/max of one instruction
+//   each, the three tests and the entry minimum) on 7 floats of ray state
+//   and 6 of box; the outputs are 8 bytes per (tile, chunk).  The render
+//   launches it at every width from 4 columns (the super-block gate) to
+//   the chunk count, so the work has to fill the card at any column count.
+//   Design: rays across lanes.  One block per (ray tile, 128 chunk
+//   columns); a thread keeps its ray (origin, reciprocal direction, tbest)
+//   in registers, loaded as two float4 and inverted once; the block's boxes
+//   sit in shared memory as two float4 per column and are read as
+//   broadcasts, four columns per step so four independent chains are in
+//   flight.  The Pallas kernel's per-sub-tile minimum over rays is a warp
+//   reduction here: an entry is >= min_dst >= 0 or +inf, so its bits order
+//   as unsigned integers; a warp votes whether any of its rays hit any of
+//   the four columns (most steps end there), and only then takes
+//   __reduce_min_sync per hit column and sends the warp's minimum by one
+//   shared-memory atomicMin to the (sub-tile, column) cell, which joins the
+//   warps of a sub-tile.  A sub-tile that is not whole warps (rows % 32
+//   != 0) sends its entries lane by lane.  The coarse gate (one bit per
+//   (tile, 512-column block), uniform over a block) is read before
+//   anything is staged: a gated-off block writes 0 / +inf and leaves.  The
+//   minimum is order-free, so the outputs equal the twin's exactly.
 //
 // B2  items_kernel (+ items_final_kernel)
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:819 (_kernel_items, with
@@ -68,28 +82,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "slab.cuh"
 #include "stage.cuh"
 
 namespace {
 
-constexpr int kActCols = 512;   // chunks per coarse-gate block
-constexpr int kActThreads = 128;  // chunk columns per activity block
+constexpr int kActCols = 512;        // chunks per coarse-gate block
+constexpr int kActBlockCols = 128;   // chunk columns per activity block
+constexpr int kActStep = 4;          // columns per step of a thread
+constexpr int kActMaxThreads = 512;  // rays of a tile per pass of a block
+constexpr int kActMaxSub = 8;        // sub-tiles per tile, at most
+constexpr unsigned kInfBits = 0x7f800000u;  // the bits of +inf
 constexpr int kItemThreads = 64;  // rays per B2 step: one 64-ray sub-tile
 constexpr int kStages = 2;        // B2's ring of staged chunks
 constexpr int kStageAlign = 128;  // bytes before the ring (the barriers)
 constexpr int kFinalThreads = 256;
-constexpr unsigned long long kNoKey = ~0ull;
 
-// jnp.minimum / torch.minimum semantics: a NaN operand gives NaN (fminf and
-// fmaxf would drop it, and NaN-padded boxes rely on propagation to fail).
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__global__ void activity_kernel(
+__global__ void __launch_bounds__(kActMaxThreads) activity_kernel(
     const float* __restrict__ rays,       // [R, 8] (o, 1, d, 0)
     const float* __restrict__ cmin,       // [C, 3]
     const float* __restrict__ cmax,       // [C, 3]
@@ -99,72 +108,103 @@ __global__ void activity_kernel(
     int32_t* __restrict__ m8,             // [T, C]
     float* __restrict__ ent,              // [T, C]
     float* __restrict__ sub_ent) {        // [T, n_sub, C] or null
-  extern __shared__ float sm[];  // [ray_tile][7]: o xyz, 1/d xyz, tbest
+  // Per column (lo.x, lo.y, lo.z, hi.x) and (hi.y, hi.z, -, -).
+  __shared__ float4 box[kActBlockCols * 2];
+  // Entry bits per (sub-tile, column); +inf = no ray of the sub-tile hit.
+  __shared__ unsigned acc[kActMaxSub * kActBlockCols];
   const int tile = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t base = (size_t)tile * ray_tile;
-  for (int i = threadIdx.x; i < ray_tile; i += blockDim.x) {
-    const float* ray = rays + (base + i) * 8;
-    float* s = sm + i * 7;
-    s[0] = ray[0];
-    s[1] = ray[1];
-    s[2] = ray[2];
-    for (int a = 0; a < 3; ++a) {
-      const float d = ray[4 + a];
-      s[3 + a] = 1.0f / (d == 0.0f ? 1e-30f : d);
-    }
-    s[6] = tbest ? tbest[base + i] : INFINITY;
-  }
-  __syncthreads();
-  if (col >= n_cols) return;
+  const int col0 = blockIdx.x * kActBlockCols;
+  const int ncols = min(kActBlockCols, n_cols - col0);
+  const size_t out0 = (size_t)tile * n_cols + col0;
 
-  bool on = true;
+  // The gate first: the block's columns lie in one 512-column gate block.
   if (cbits) {
-    const int b = col / kActCols;
-    on = ((cbits[(size_t)tile * nwords + b / 32] >> (b % 32)) & 1) != 0;
+    const int b = col0 / kActCols;
+    if (!((cbits[(size_t)tile * nwords + b / 32] >> (b % 32)) & 1)) {
+      for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+        m8[out0 + c] = 0;
+        ent[out0 + c] = INFINITY;
+        if (sub_ent) {
+          for (int st = 0; st < n_sub; ++st)
+            sub_ent[((size_t)tile * n_sub + st) * n_cols + col0 + c] = INFINITY;
+        }
+      }
+      return;
+    }
   }
-  const float lo0 = cmin[col * 3 + 0], lo1 = cmin[col * 3 + 1], lo2 = cmin[col * 3 + 2];
-  const float hi0 = cmax[col * 3 + 0], hi1 = cmax[col * 3 + 1], hi2 = cmax[col * 3 + 2];
+
+  // Stage the boxes (NaN boxes fill the last step: they never hit) and
+  // clear the cells.
+  const int ncols_step = (ncols + kActStep - 1) / kActStep * kActStep;
+  for (int c = threadIdx.x; c < ncols_step; c += blockDim.x) {
+    float4 p = make_float4(NAN, NAN, NAN, NAN), q = p;
+    if (c < ncols) {
+      const float* lo = cmin + (size_t)(col0 + c) * 3;
+      const float* hi = cmax + (size_t)(col0 + c) * 3;
+      p = make_float4(lo[0], lo[1], lo[2], hi[0]);
+      q = make_float4(hi[1], hi[2], 0.0f, 0.0f);
+    }
+    box[2 * c] = p;
+    box[2 * c + 1] = q;
+  }
+  for (int k = threadIdx.x; k < n_sub * kActBlockCols; k += blockDim.x) acc[k] = kInfBits;
+  __syncthreads();
+
   const int rows = ray_tile / n_sub;
-  int bits = 0;
-  float emin = INFINITY;
-  for (int st = 0; st < n_sub; ++st) {
-    float smin = INFINITY;
-    if (on) {
-      for (int i = st * rows; i < (st + 1) * rows; ++i) {
-        const float* s = sm + i * 7;
-        float t1 = (lo0 - s[0]) * s[3];
-        float t2 = (hi0 - s[0]) * s[3];
-        float t_lo = nan_min(t1, t2);
-        float t_hi = nan_max(t1, t2);
-        t1 = (lo1 - s[1]) * s[4];
-        t2 = (hi1 - s[1]) * s[4];
-        t_lo = nan_max(t_lo, nan_min(t1, t2));
-        t_hi = nan_min(t_hi, nan_max(t1, t2));
-        t1 = (lo2 - s[2]) * s[5];
-        t2 = (hi2 - s[2]) * s[5];
-        t_lo = nan_max(t_lo, nan_min(t1, t2));
-        t_hi = nan_min(t_hi, nan_max(t1, t2));
-        if (t_lo <= t_hi && t_hi >= min_dst && t_lo <= s[6]) {
-          const float e = t_lo > min_dst ? t_lo : min_dst;
-          smin = e < smin ? e : smin;
+  const bool whole_warps = rows % 32 == 0;  // a warp's rays share a sub-tile
+  const int lane = threadIdx.x & 31;
+  for (int r0 = 0; r0 < ray_tile; r0 += blockDim.x) {
+    const int r = r0 + threadIdx.x;
+    const bool live = r < ray_tile;
+    const size_t i = (size_t)tile * ray_tile + (live ? r : 0);
+    const float4 ro = reinterpret_cast<const float4*>(rays)[2 * i];
+    const float4 rd = reinterpret_cast<const float4*>(rays)[2 * i + 1];
+    // A lane past the tile carries a NaN origin: it fails every test.
+    const float o0 = live ? ro.x : NAN, o1 = ro.y, o2 = ro.z;
+    const float i0 = tpt::inv_dir(rd.x), i1 = tpt::inv_dir(rd.y), i2 = tpt::inv_dir(rd.z);
+    const float tb = tbest ? tbest[i] : INFINITY;
+    unsigned* cell = acc + (live ? r / rows : 0) * kActBlockCols;
+    for (int c = 0; c < ncols_step; c += kActStep) {
+      float t_lo[kActStep];
+      bool hit[kActStep];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < kActStep; ++u) {
+        const float4 p = box[2 * (c + u)];
+        const float4 q = box[2 * (c + u) + 1];
+        float t_hi;
+        tpt::slab_interval(p.x, p.y, p.z, p.w, q.x, q.y, o0, o1, o2, i0, i1, i2, &t_lo[u], &t_hi);
+        hit[u] = t_lo[u] <= t_hi && t_hi >= min_dst && t_lo[u] <= tb;
+        any = any || hit[u];
+      }
+      if (!__any_sync(0xFFFFFFFFu, any)) continue;
+#pragma unroll
+      for (int u = 0; u < kActStep; ++u) {
+        const float e = t_lo[u] > min_dst ? t_lo[u] : min_dst;
+        const unsigned bits = hit[u] ? __float_as_uint(e) : kInfBits;
+        if (whole_warps) {
+          const unsigned m = __reduce_min_sync(0xFFFFFFFFu, bits);
+          if (lane == 0 && m < kInfBits) atomicMin(cell + c + u, m);
+        } else if (bits < kInfBits) {
+          atomicMin(cell + c + u, bits);
         }
       }
     }
-    if (sub_ent) sub_ent[((size_t)tile * n_sub + st) * n_cols + col] = smin;
-    if (smin < INFINITY) bits |= 1 << st;
-    emin = smin < emin ? smin : emin;
   }
-  m8[(size_t)tile * n_cols + col] = bits;
-  ent[(size_t)tile * n_cols + col] = emin;
-}
+  __syncthreads();
 
-__device__ __forceinline__ unsigned long long make_key(float t, unsigned int low) {
-  return ((unsigned long long)__float_as_uint(t) << 32) | low;
-}
-
-__device__ __forceinline__ float key_time(unsigned long long key) {
-  return __uint_as_float((unsigned int)(key >> 32));
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    int bits = 0;
+    unsigned emin = kInfBits;
+    for (int st = 0; st < n_sub; ++st) {
+      const unsigned v = acc[st * kActBlockCols + c];
+      if (sub_ent) sub_ent[((size_t)tile * n_sub + st) * n_cols + col0 + c] = __uint_as_float(v);
+      if (v < kInfBits) bits |= 1 << st;
+      emin = min(emin, v);
+    }
+    m8[out0 + c] = bits;
+    ent[out0 + c] = __uint_as_float(emin);
+  }
 }
 
 // The set sub-tile bits of chunk item ``item`` = (tile * cap + slot) *
@@ -282,7 +322,7 @@ __global__ void __launch_bounds__(kItemThreads) items_kernel(
           arg = j;
         }
       }
-      if (best < tmin0[i]) atomicMin(keys + i, make_key(best, order0 + (unsigned)arg));
+      if (best < tmin0[i]) atomicMin(keys + i, tpt::make_key(best, order0 + (unsigned)arg));
     }
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
@@ -295,20 +335,7 @@ __global__ void items_final_kernel(
     float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
-  const unsigned long long key = keys[i];
-  if (key != kNoKey && key_time(key) < tmin0[i]) {
-    const unsigned int ord = (unsigned int)(key & 0xFFFFFFFFu);
-    const unsigned int lane = ord % cw;
-    const unsigned int sg = ord / cw;  // slot * group + g
-    const int s = sg / group;
-    const int g = sg % group;
-    const int jg = idx[(size_t)(i / ray_tile) * cap + s];
-    t_out[i] = key_time(key);
-    tri_out[i] = (int32_t)((jg * group + g) * cw + lane);
-  } else {
-    t_out[i] = tmin0[i];
-    tri_out[i] = tidx0[i];
-  }
+  tpt::decode_order_key(keys[i], i, tmin0, tidx0, idx, ray_tile, cap, group, cw, t_out, tri_out);
 }
 
 }  // namespace
@@ -319,9 +346,9 @@ extern "C" int tpt_activity(
     int n_sub, float min_dst, void* m8, void* ent, void* sub_ent,
     void* stream) {
   const int t_tiles = n_rays / ray_tile;
-  const dim3 grid((n_cols + kActThreads - 1) / kActThreads, t_tiles);
-  const size_t smem = (size_t)ray_tile * 7 * sizeof(float);
-  activity_kernel<<<grid, kActThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((n_cols + kActBlockCols - 1) / kActBlockCols, t_tiles);
+  const int threads = min(kActMaxThreads, (ray_tile + 31) / 32 * 32);
+  activity_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)cmin, (const float*)cmax,
       (const float*)tbest, (const int32_t*)cbits, nwords, n_cols, ray_tile,
       n_sub, min_dst, (int32_t*)m8, (float*)ent, (float*)sub_ent);

@@ -37,8 +37,10 @@
 //   via nearest_box_ids :1714).
 //   Per ray, the id of the group AABB with the smallest slab entry distance
 //   max(t_enter, min_dst); first minimum wins, -1 when no box is entered.
-//   Bound on the H100: ALU (~25 float ops per (ray, box) pair; the boxes are
-//   24 bytes each and shared by every ray).  Design: one thread per ray with
+//   Bound on the H100: ALU (~30 lane operations per (ray, box) pair with the
+//   one-instruction NaN-propagating min/max of slab.cuh; the boxes are 24
+//   bytes each and shared by every ray).  The entry written out is clamped
+//   to min_dst by a select, so the sign of a zero never reaches t_out.  Design: one thread per ray with
 //   (o, 1/d) and the running (best entry, id) in registers; the boxes are
 //   staged through shared memory 512 at a time and read as broadcasts.  A
 //   strict < over boxes in id order gives the first minimum, which is what
@@ -49,6 +51,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "slab.cuh"
 #include "stage.cuh"
 
 namespace {
@@ -59,15 +62,6 @@ constexpr int kStageAlign = 128;     // bytes before the ring (the barriers)
 constexpr int kSumThreads = 256;     // rays per segment-sum block
 constexpr int kNearThreads = 256;    // rays per nearest-box block
 constexpr int kNearStage = 512;      // boxes staged in shared memory at once
-
-// jnp.minimum / torch.minimum semantics: a NaN operand gives NaN, so the
-// NaN boxes of padding groups never pass the slab test.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
 
 __global__ void __launch_bounds__(kPdfThreads) light_pdf_kernel(
     const float* __restrict__ rays,          // [R, 8] (o, 1, d, 0)
@@ -158,8 +152,7 @@ __global__ void nearest_kernel(
   if (live) {
     for (int a = 0; a < 3; ++a) {
       o[a] = rays[(size_t)i * 8 + a];
-      const float d = rays[(size_t)i * 8 + 4 + a];
-      inv[a] = 1.0f / (d == 0.0f ? 1e-30f : d);
+      inv[a] = tpt::inv_dir(rays[(size_t)i * 8 + 4 + a]);
     }
   }
   float best = INFINITY;
@@ -176,18 +169,9 @@ __global__ void nearest_kernel(
     if (!live) continue;
     for (int g = 0; g < n; ++g) {
       const float* b = box + g * 6;
-      float t1 = (b[0] - o[0]) * inv[0];
-      float t2 = (b[3] - o[0]) * inv[0];
-      float t_lo = nan_min(t1, t2);
-      float t_hi = nan_max(t1, t2);
-      t1 = (b[1] - o[1]) * inv[1];
-      t2 = (b[4] - o[1]) * inv[1];
-      t_lo = nan_max(t_lo, nan_min(t1, t2));
-      t_hi = nan_min(t_hi, nan_max(t1, t2));
-      t1 = (b[2] - o[2]) * inv[2];
-      t2 = (b[5] - o[2]) * inv[2];
-      t_lo = nan_max(t_lo, nan_min(t1, t2));
-      t_hi = nan_min(t_hi, nan_max(t1, t2));
+      float t_lo, t_hi;
+      tpt::slab_interval(b[0], b[1], b[2], b[3], b[4], b[5], o[0], o[1], o[2], inv[0], inv[1],
+                         inv[2], &t_lo, &t_hi);
       if (t_lo <= t_hi && t_hi >= min_dst) {
         const float e = t_lo > min_dst ? t_lo : min_dst;
         if (e < best) {

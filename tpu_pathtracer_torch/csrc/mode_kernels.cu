@@ -37,12 +37,38 @@
 //   For tile i and slot s < counts[i], group idx[i, s]: each of its chunks is
 //   tested on the 64-ray sub-tiles whose bit is set in the slot's mask byte,
 //   accumulated in slot order with a strict < over (tmin0, tidx0).  The same
-//   function as B2 (items_kernel), run the TPU's way: a (tile, slot) grid,
-//   so a tile's slots run in parallel instead of one block walking the whole
-//   worklist.  Bound as B2.  Order is kept by the key of B5 with a test-order
-//   index (s * group + g) * cw + lane in place of the triangle id (the first
-//   minimum in slot, chunk, lane order), decoded back to the triangle
-//   (idx[i, s] * group + g) * cw + lane by the final pass.
+//   function as B2 (items_kernel); what is particular to the slot grid is
+//   that a slot's group of chunks is one contiguous block of Woop rows (48 KB
+//   at 8 chunks of 128 triangles), which the Pallas index map fetched in one
+//   copy per (tile, slot) grid step.
+//   Bound on the H100: ALU, as B2 (~55 lane operations per (ray, triangle)
+//   pair; the groups are read from L2).  On the card a (tile, slot) grid
+//   leaves most warps idle: about one sub-tile bit in six is set, and the
+//   grid is cap x T blocks of which a quarter are live.
+//   Design: the work is the set (chunk, sub-tile) bits of the live slots.
+//   ``slot_unit_offsets`` (tensor code, no host read) gives their prefix sum
+//   per (tile, slot); a persistent grid (as many blocks as the SMs hold)
+//   splits the unit count into equal contiguous ranges, so no block is
+//   launched for a dead slot and a long slot may be shared by two blocks.
+//   A block is one producer warp and kSlotWarps consumer warps.  The
+//   producer walks the slots of the block's range (binary search for the
+//   first, a galloping search past dead slots) and stages each slot's group
+//   from the triangle-major copy of chunk_woop, one cp.async.bulk per chunk
+//   whose mask byte is non-zero, into a ring of kSlotStages groups; a stage
+//   is full when its bytes have landed on its mbarrier, and empty again when
+//   every consumer warp has arrived on a second mbarrier, so the next slot's
+//   group is in flight while this one is walked.  A unit's triangles are
+//   cut into kSlotParts parts, and the parts of the block's range are dealt
+//   to the consumer warps round robin by number, across slot boundaries, so
+//   no warp waits on a clear bit and a warp may run one slot ahead of
+//   another (the atrium's slots have ~11 units; whole units dealt to 12
+//   warps would leave some waiting at every slot).  A warp tests a part's
+//   64 rays, 32 at a time, against its triangles with tpt::woop_hit on
+//   three float4 shared loads per triangle.  Order is kept by the key of B5
+//   with a test-order index (s * group + g) * cw + lane in place of the
+//   triangle id (the first minimum in slot, chunk, lane order), decoded back
+//   to the triangle (idx[i, s] * group + g) * cw + lane by the final pass: t
+//   and tri equal the plain twin and B2 bit for bit, from run to run.
 //
 // B7  ray_group_kernel
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:421 (_ray_group_kernel,
@@ -51,7 +77,8 @@
 //   min_dst, no far bound) for any of group g's chunk AABBs, else 0; the
 //   output is group-major [CG, R] int32.
 //   Bound on the H100: memory on the output (4 bytes per (group, ray) pair
-//   against ~25 float ops per (ray, box) pair x group boxes; 64 MB at the
+//   against ~30 lane operations per (ray, box) pair x group boxes, with the
+//   one-instruction NaN-propagating min/max of slab.cuh; 64 MB at the
 //   atrium's 256 x 65,536).  Design: one thread per (ray, group), the
 //   threads of a warp on consecutive rays of one group so every store is
 //   coalesced; a block's groups' boxes are staged in shared memory once and
@@ -62,30 +89,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "slab.cuh"
+#include "stage.cuh"
+
 namespace {
 
 constexpr int kFinalThreads = 256;
 constexpr int kDenseGroup = 8;       // chunks per B5 block
 constexpr int kGroupThreads = 256;    // rays per B7 block
 constexpr int kGroupsPerBlock = 32;   // groups per B7 block
-constexpr unsigned long long kNoKey = ~0ull;
-
-// jnp.minimum / torch.minimum semantics: a NaN operand gives NaN, so the
-// NaN boxes of padding chunks never pass the slab test.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ unsigned long long make_key(float t, unsigned int low) {
-  return ((unsigned long long)__float_as_uint(t) << 32) | low;
-}
-
-__device__ __forceinline__ float key_time(unsigned long long key) {
-  return __uint_as_float((unsigned int)(key >> 32));
-}
+constexpr int kSlotWarps = 12;        // consumer warps per B6 block (one more produces)
+constexpr int kSlotStages = 2;        // B6's ring of staged groups
+constexpr int kSlotParts = 2;        // a unit's triangles are dealt in this many parts (divides cw)
+constexpr int kSlotHead = 128;        // bytes before the ring: barriers, slot records
 
 // First minimum over one chunk's cw triangles of the Woop test of the ray
 // (o, d), the chunk's [12][cw] block in shared memory; the operation order
@@ -175,7 +191,7 @@ __global__ void dense_kernel(
       best_tri = (unsigned int)(chunk * cw + arg);
     }
   }
-  if (best < tmin0[i]) atomicMin(keys + i, make_key(best, best_tri));
+  if (best < tmin0[i]) atomicMin(keys + i, tpt::make_key(best, best_tri));
 }
 
 __global__ void dense_final_kernel(
@@ -185,8 +201,8 @@ __global__ void dense_final_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const unsigned long long key = keys[i];
-  if (key != kNoKey && key_time(key) < tmin0[i]) {
-    t_out[i] = key_time(key);
+  if (key != tpt::kNoKey && tpt::key_time(key) < tmin0[i]) {
+    t_out[i] = tpt::key_time(key);
     tri_out[i] = (int32_t)(key & 0xFFFFFFFFu);
   } else {
     t_out[i] = tmin0[i];
@@ -194,43 +210,150 @@ __global__ void dense_final_kernel(
   }
 }
 
-__global__ void slots_kernel(
+// One part of a unit of B6: the rays of a sub-tile (``rows`` from ray
+// ``ray0``), 32 at a time, against triangles j0 .. j1-1 of the chunk staged
+// at ``w``; each ray's first minimum goes to its key when it beats tmin0.
+__device__ __forceinline__ void slot_part(
+    const float4* __restrict__ w, const float* __restrict__ rays,
+    const float* __restrict__ tmin0, size_t ray0, int rows, int j0, int j1, unsigned order0,
+    float min_dst, int lane, unsigned long long* __restrict__ keys) {
+  for (int r = lane; r < rows; r += 32) {
+    const size_t i = ray0 + r;
+    const float4 o = reinterpret_cast<const float4*>(rays)[2 * i];
+    const float4 d = reinterpret_cast<const float4*>(rays)[2 * i + 1];
+    float best = INFINITY;
+    int arg = 0;
+#pragma unroll 8
+    for (int j = j0; j < j1; ++j) {
+      float t, q2;
+      const bool ok = tpt::woop_hit(w[3 * j], w[3 * j + 1], w[3 * j + 2], o.x, o.y, o.z, d.x, d.y,
+                                    d.z, min_dst, &t, &q2);
+      const float tm = ok ? t : INFINITY;
+      if (tm < best) {  // strict: the first lane keeps a tie
+        best = tm;
+        arg = j;
+      }
+    }
+    if (best < tmin0[i]) atomicMin(keys + i, tpt::make_key(best, order0 + (unsigned)arg));
+  }
+}
+
+__global__ void __launch_bounds__((kSlotWarps + 1) * 32) slots_kernel(
     const float* __restrict__ rays,        // [R, 8]
     const float* __restrict__ tmin0,       // [R]
-    const float* __restrict__ chunk_woop,  // [Cpad, 12, cw]
-    const int32_t* __restrict__ idx,       // [T, cap]
-    const int32_t* __restrict__ counts,    // [T]
-    const int32_t* __restrict__ masks,     // [T, cap, W]
-    int cap, int n_words, int group, int n_sub, int cw, float min_dst,
+    const float4* __restrict__ woop_t,     // [Cpad, cw, 3] triangle-major Woop rows
+    const int32_t* __restrict__ idx,       // [T * cap]
+    const int32_t* __restrict__ masks,     // [T * cap, W]
+    const int32_t* __restrict__ offsets,   // [T * cap] units, inclusive prefix sum
+    int n_slots, int cap, int n_words, int group, int n_sub, int ray_tile, int cw,
+    float min_dst,
     unsigned long long* __restrict__ keys) {  // [R], all ones on entry
-  extern __shared__ float w[];  // [12][cw] Woop block of the current chunk
-  const int s = blockIdx.x;
-  const int tile = blockIdx.y;
-  if (s >= counts[tile]) return;
-  const int jg = idx[(size_t)tile * cap + s];
-  const int32_t* words = masks + ((size_t)tile * cap + s) * n_words;
-  const size_t i = (size_t)tile * blockDim.x + threadIdx.x;
-  const int st = threadIdx.x / (blockDim.x / n_sub);
-  const float* ray = rays + i * 8;
-  const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
-  const float d0 = ray[4], d1 = ray[5], d2 = ray[6];
-  float best = INFINITY;
-  unsigned int best_ord = 0;
-  for (int g = 0; g < group; ++g) {
-    const int mask = (words[g / 4] >> (8 * (g % 4))) & 0xFF;
-    if (mask == 0) continue;  // uniform over the block
-    __syncthreads();
-    stage_chunk(w, chunk_woop, jg * group + g, cw);
-    __syncthreads();
-    if (!((mask >> st) & 1)) continue;
-    int arg;
-    const float t = chunk_first_min(w, cw, o0, o1, o2, d0, d1, d2, min_dst, &arg);
-    if (t < best) {
-      best = t;
-      best_ord = (unsigned int)((s * group + g) * cw + arg);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [kSlotStages] bytes landed
+  uint64_t* empty = full + kSlotStages;                       // [kSlotStages] consumers done
+  int4* record = reinterpret_cast<int4*>(smem + 64);          // [kSlotStages] (slot, units before, last)
+  float4* ring = reinterpret_cast<float4*>(smem + kSlotHead);  // [kSlotStages][group][cw * 3]
+  const long long total = offsets[n_slots - 1];
+  const int lo = (int)(total * blockIdx.x / gridDim.x);
+  const int hi = (int)(total * (blockIdx.x + 1) / gridDim.x);
+  if (lo >= hi) return;  // uniform over the block
+  const unsigned submask = (1u << n_sub) - 1u;
+  const size_t chunk_f4 = (size_t)cw * 3;
+  const size_t stage_f4 = chunk_f4 * group;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kSlotStages; ++k) {
+      tpt::mbar_init(&full[k], 1);
+      tpt::mbar_init(&empty[k], kSlotWarps);
+    }
+    tpt::mbar_init_fence();
+  }
+  __syncthreads();  // the last block-wide barrier: the warps part ways here
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp == kSlotWarps) {
+    // Producer (one lane): the slots with units in [lo, hi), in order.
+    if (lane != 0) return;
+    int a = 0, b = n_slots - 1;
+    while (a < b) {  // the first slot whose prefix sum passes lo
+      const int m = (a + b) >> 1;
+      if (offsets[m] > lo) b = m; else a = m + 1;
+    }
+    int slot = a;
+    for (int use = 0;; ++use) {
+      const int stage = use % kSlotStages;
+      if (use >= kSlotStages) {
+        // Every consumer warp has left the stage's previous slot.
+        tpt::mbar_wait_or_trap(&empty[stage], ((use / kSlotStages) - 1) & 1);
+        tpt::fence_proxy_async();
+      }
+      const int before = slot > 0 ? offsets[slot - 1] : 0;
+      const int after = offsets[slot];
+      const bool last = after >= hi;
+      record[stage] = make_int4(slot, before, last ? 1 : 0, 0);
+      const int32_t* words = masks + (size_t)slot * n_words;
+      unsigned live = 0;  // bit g: chunk g of the group has a set sub-tile bit
+      for (int g = 0; g < group; ++g) {
+        if (((unsigned)words[g / 4] >> (8 * (g % 4))) & submask) live |= 1u << g;
+      }
+      const uint32_t chunk_bytes = (uint32_t)(chunk_f4 * sizeof(float4));
+      // The arrival releases the record to the consumers; the phase
+      // completes when the chunks' bytes have landed too.
+      tpt::mbar_expect_tx(&full[stage], (uint32_t)__popc(live) * chunk_bytes);
+      const size_t chunk0 = (size_t)idx[slot] * group;
+      for (int g = 0; g < group; ++g) {
+        if ((live >> g) & 1)
+          tpt::bulk_load(ring + stage * stage_f4 + g * chunk_f4, woop_t + (chunk0 + g) * chunk_f4,
+                         chunk_bytes, &full[stage]);
+      }
+      if (last) return;
+      // The next slot with units, by a galloping search over the prefix
+      // sum: a tile's dead slots cost O(log gap) loads.
+      int lo_s = slot, hi_s = slot + 1, step = 1;
+      while (offsets[hi_s] <= after) {  // ends: offsets[n_slots - 1] = total > after
+        lo_s = hi_s;
+        step <<= 1;
+        hi_s = min(slot + step, n_slots - 1);
+      }
+      while (hi_s - lo_s > 1) {
+        const int m = (lo_s + hi_s) >> 1;
+        if (offsets[m] > after) hi_s = m; else lo_s = m;
+      }
+      slot = hi_s;
     }
   }
-  if (best < tmin0[i]) atomicMin(keys + i, make_key(best, best_ord));
+
+  // Consumers: part h of unit number u of the block's range belongs to warp
+  // ((u - lo) * kSlotParts + h) % kSlotWarps.
+  const int rows = ray_tile / n_sub;
+  const int part = cw / kSlotParts;
+  for (int use = 0;; ++use) {
+    const int stage = use % kSlotStages;
+    tpt::mbar_wait_or_trap(&full[stage], (use / kSlotStages) & 1);
+    const int4 rec = record[stage];
+    const int slot = rec.x;
+    const int tile = slot / cap;
+    const int s = slot % cap;
+    const int32_t* words = masks + (size_t)slot * n_words;
+    int u = rec.y;  // the number of the slot's first unit
+    for (int g = 0; g < group; ++g) {
+      unsigned bits = ((unsigned)words[g / 4] >> (8 * (g % 4))) & submask;
+      for (; bits; bits &= bits - 1, ++u) {
+        if (u < lo || u >= hi) continue;
+        const int st = __ffs(bits) - 1;
+        for (int h = 0; h < kSlotParts; ++h) {
+          if (((u - lo) * kSlotParts + h) % kSlotWarps != warp) continue;
+          slot_part(ring + stage * stage_f4 + g * chunk_f4, rays, tmin0,
+                    (size_t)tile * ray_tile + (size_t)st * rows, rows, h * part, (h + 1) * part,
+                    (unsigned)((s * group + g) * cw), min_dst, lane, keys);
+        }
+      }
+    }
+    __syncwarp();  // every lane has read its last triangle of the stage
+    if (lane == 0) tpt::mbar_arrive(&empty[stage]);
+    if (rec.z) return;
+  }
 }
 
 __global__ void slots_final_kernel(
@@ -240,20 +363,7 @@ __global__ void slots_final_kernel(
     float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
-  const unsigned long long key = keys[i];
-  if (key != kNoKey && key_time(key) < tmin0[i]) {
-    const unsigned int ord = (unsigned int)(key & 0xFFFFFFFFu);
-    const unsigned int lane = ord % cw;
-    const unsigned int sg = ord / cw;  // s * group + g
-    const int s = sg / group;
-    const int g = sg % group;
-    const int jg = idx[(size_t)(i / ray_tile) * cap + s];
-    t_out[i] = key_time(key);
-    tri_out[i] = (int32_t)((jg * group + g) * cw + lane);
-  } else {
-    t_out[i] = tmin0[i];
-    tri_out[i] = tidx0[i];
-  }
+  tpt::decode_order_key(keys[i], i, tmin0, tidx0, idx, ray_tile, cap, group, cw, t_out, tri_out);
 }
 
 __global__ void ray_group_kernel(
@@ -277,25 +387,15 @@ __global__ void ray_group_kernel(
   if (r >= n_rays) return;
   const float* ray = rays + (size_t)r * 8;
   const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
-  const float i0 = 1.0f / (ray[4] == 0.0f ? 1e-30f : ray[4]);
-  const float i1 = 1.0f / (ray[5] == 0.0f ? 1e-30f : ray[5]);
-  const float i2 = 1.0f / (ray[6] == 0.0f ? 1e-30f : ray[6]);
+  const float i0 = tpt::inv_dir(ray[4]);
+  const float i1 = tpt::inv_dir(ray[5]);
+  const float i2 = tpt::inv_dir(ray[6]);
   for (int gl = 0; gl < ng; ++gl) {
     int hit = 0;
     for (int c = 0; c < group; ++c) {
       const float* b = box + (gl * group + c) * 6;
-      float t1 = (b[0] - o0) * i0;
-      float t2 = (b[3] - o0) * i0;
-      float t_lo = nan_min(t1, t2);
-      float t_hi = nan_max(t1, t2);
-      t1 = (b[1] - o1) * i1;
-      t2 = (b[4] - o1) * i1;
-      t_lo = nan_max(t_lo, nan_min(t1, t2));
-      t_hi = nan_min(t_hi, nan_max(t1, t2));
-      t1 = (b[2] - o2) * i2;
-      t2 = (b[5] - o2) * i2;
-      t_lo = nan_max(t_lo, nan_min(t1, t2));
-      t_hi = nan_min(t_hi, nan_max(t1, t2));
+      float t_lo, t_hi;
+      tpt::slab_interval(b[0], b[1], b[2], b[3], b[4], b[5], o0, o1, o2, i0, i1, i2, &t_lo, &t_hi);
       hit |= (t_lo <= t_hi && t_hi >= min_dst) ? 1 : 0;
     }
     out[(size_t)(g0 + gl) * n_rays + r] = hit;
@@ -328,19 +428,35 @@ extern "C" int tpt_dense(
 
 extern "C" int tpt_slots(
     const void* rays, const void* tmin0, const void* tidx0,
-    const void* chunk_woop, const void* idx, const void* counts,
-    const void* masks, int n_rays, int t_tiles, int cap, int n_words,
+    const void* woop_t, const void* idx, const void* masks, const void* offsets,
+    int n_rays, int t_tiles, int cap, int n_words,
     int group, int n_sub, int cw, float min_dst, void* keys, void* t_out,
     void* tri_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int ray_tile = n_rays / t_tiles;
+  const int n_slots = t_tiles * cap;
   cudaError_t err = cudaMemsetAsync(keys, 0xFF, (size_t)n_rays * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return (int)err;
-  if (cap > 0) {
-    slots_kernel<<<dim3(cap, t_tiles), ray_tile, (size_t)12 * cw * sizeof(float), st>>>(
-        (const float*)rays, (const float*)tmin0, (const float*)chunk_woop,
-        (const int32_t*)idx, (const int32_t*)counts, (const int32_t*)masks, cap,
-        n_words, group, n_sub, cw, min_dst, (unsigned long long*)keys);
+  if (n_slots > 0) {
+    // A persistent grid: as many blocks as the SMs hold at once.  The ring
+    // is past the 48 KB a block gets without asking.
+    const int threads = (kSlotWarps + 1) * 32;
+    const size_t smem = kSlotHead + (size_t)kSlotStages * group * cw * 3 * sizeof(float4);
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slots_kernel, threads,
+                                                             smem)) != cudaSuccess)
+      return (int)err;
+    const int grid = sms * (per_sm > 0 ? per_sm : 1);
+    slots_kernel<<<grid, threads, smem, st>>>(
+        (const float*)rays, (const float*)tmin0, (const float4*)woop_t, (const int32_t*)idx,
+        (const int32_t*)masks, (const int32_t*)offsets, n_slots, cap, n_words, group, n_sub,
+        ray_tile, cw, min_dst, (unsigned long long*)keys);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

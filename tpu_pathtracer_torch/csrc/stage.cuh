@@ -1,13 +1,14 @@
-// Pieces shared by the Hopper (sm_90a) kernels that walk Woop blocks:
-// asynchronous staging of a block into shared memory by one bulk copy
-// (cp.async.bulk, the Tensor Memory Accelerator's 1D form) completed on an
-// mbarrier, and the Woop test of one (ray, triangle) pair on the
-// triangle-major layout (three float4 per triangle: the rows 4c..4c+3 of
-// barycentric component c).
+// Pieces shared by the Hopper (sm_90a) kernels that walk Woop blocks: the
+// ordering key of a ray's candidates, asynchronous staging of a block into
+// shared memory by one bulk copy (cp.async.bulk, the Tensor Memory
+// Accelerator's 1D form) completed on an mbarrier, and the Woop test of one
+// (ray, triangle) pair on the triangle-major layout (three float4 per
+// triangle: the rows 4c..4c+3 of barycentric component c).
 //
-// Included by chunk_kernels.cu (B2) and light_sort_kernels.cu (B3); the
-// build hashes it with each source.  Every expression rounds op for op like
-// the plain-torch twins of ops/chunk_intersect.py under --fmad=false.
+// Included by chunk_kernels.cu (B2), light_sort_kernels.cu (B3) and
+// mode_kernels.cu (B5's key, B6); the build hashes it with each source.
+// Every expression rounds op for op like the plain-torch twins of
+// ops/chunk_intersect.py under --fmad=false.
 
 #pragma once
 
@@ -20,10 +21,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One thread initialises each barrier with one arrival (the thread that
-// issues the copy), then the block synchronises.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+// One thread initialises each barrier with the arrivals that complete a
+// phase (one for a barrier that only the copy's starter arrives on), then
+// the block synchronises.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(arrivals) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init_fence() {
@@ -51,6 +54,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
+// One arrival without bytes (release: the thread's earlier reads and writes
+// of shared memory are ordered before it).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // Block until the barrier's phase of parity ``parity`` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -62,6 +71,64 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "bra LAB_WAIT;\n"
       "DONE:\n"
       "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// mbar_wait for a kernel whose barriers are arrived on by other warps of the
+// block (B6's producer and consumers): a phase still open after 2^26 polls
+// (more than half a second; a wait in a correct run ends within a slot's
+// time, microseconds) is a fault in the protocol, and the kernel traps (the
+// launch fails) instead of hanging the card.  The loop is PTX like
+// mbar_wait's: written in C++ it cost B6 2-3%.  B2 and B3, where the waiting
+// block's own thread started the copy, keep the bare loop: B2 ran 2% slower
+// with this one (47 registers against 45, another schedule of its pair loop).
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      ".reg .u32 polls;\n"
+      "mov.u32 polls, 0;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "add.u32 polls, polls, 1;\n"
+      "setp.eq.u32 P1, polls, 0x4000000;\n"
+      "@P1 trap;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// The 64-bit key B2, B5 and B6 order a ray's candidates by: the float bits
+// of t (t >= min_dst > 0, so the bits order like the floats) above a 32-bit
+// order index; the minimum key is the first minimum in that order.
+constexpr unsigned long long kNoKey = ~0ull;
+
+__device__ __forceinline__ unsigned long long make_key(float t, unsigned int low) {
+  return ((unsigned long long)__float_as_uint(t) << 32) | low;
+}
+
+__device__ __forceinline__ float key_time(unsigned long long key) {
+  return __uint_as_float((unsigned int)(key >> 32));
+}
+
+// The final pass of B2 and B6 for ray i: decode its minimum key's test-order
+// index (slot * group + g) * cw + lane to the triangle (idx[tile, slot] *
+// group + g) * cw + lane, and keep (tmin0, tidx0) unless strictly beaten.
+__device__ __forceinline__ void decode_order_key(
+    unsigned long long key, int i, const float* __restrict__ tmin0,
+    const int32_t* __restrict__ tidx0, const int32_t* __restrict__ idx, int ray_tile, int cap,
+    int group, int cw, float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
+  if (key != kNoKey && key_time(key) < tmin0[i]) {
+    const unsigned int ord = (unsigned int)(key & 0xFFFFFFFFu);
+    const unsigned int lane = ord % cw;
+    const unsigned int sg = ord / cw;  // slot * group + g
+    const int jg = idx[(size_t)(i / ray_tile) * cap + sg / group];
+    t_out[i] = key_time(key);
+    tri_out[i] = (int32_t)((jg * group + sg % group) * cw + lane);
+  } else {
+    t_out[i] = tmin0[i];
+    tri_out[i] = tidx0[i];
+  }
 }
 
 // Woop test of the ray (o, d) against one triangle given as its three rows

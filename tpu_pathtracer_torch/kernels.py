@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 
 import torch
 
@@ -47,7 +48,7 @@ LIBRARIES = {
     },
     "mode_kernels": {
         "tpt_dense": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4,
-        "tpt_slots": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,
+        "tpt_slots": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,  # woop_t, idx, masks, offsets
         "tpt_ray_groups": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     },
 }
@@ -141,12 +142,37 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+# Woop blocks [C, 12, cw] -> their triangle-major copies [C, cw, 12], keyed
+# on the identity of the source tensor: id -> (weak reference, version, copy).
+_TRIANGLE_MAJOR: dict = {}
+
+
+def triangle_major(woop: torch.Tensor) -> torch.Tensor:
+    """The triangle-major copy [C, cw, 12] of Woop blocks [C, 12, cw] (three
+    float4 per triangle) that B2, B3 and B6 stage from.  Made once per
+    tensor: a scene's ``chunk_woop`` / ``cluster_woop`` is copied at its
+    first launch and found again at every later one; the entry goes when the
+    tensor does, and is remade if the tensor was written in place."""
+    key = id(woop)
+    hit = _TRIANGLE_MAJOR.get(key)
+    if hit is not None and hit[0]() is woop and hit[1] == woop._version:
+        return hit[2]
+    copy = woop.transpose(1, 2).contiguous()
+    _TRIANGLE_MAJOR[key] = (weakref.ref(woop, lambda _, key=key: _TRIANGLE_MAJOR.pop(key, None)),
+                            woop._version, copy)
+    return copy
+
+
 def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub):
-    """Launch B1 (contract: ``ops.chunk_intersect.tile_chunk_activity_plain``)."""
+    """Launch B1 (contract: ``ops.chunk_intersect.tile_chunk_activity_plain``).
+    The kernel orders entry distances by their bits, so ``min_dst`` must not
+    be negative."""
     dev = rays.device
     r, c = rays.shape[0], cmin.shape[0]
-    if r % ray_tile or ray_tile % n_sub or not 1 <= n_sub <= 8 or c == 0:
-        raise ValueError(f"activity: R={r} ray_tile={ray_tile} n_sub={n_sub} C={c}")
+    if r % ray_tile or ray_tile % n_sub or not 1 <= n_sub <= 8 or c == 0 or not min_dst >= 0:
+        raise ValueError(
+            f"activity: R={r} ray_tile={ray_tile} n_sub={n_sub} C={c} min_dst={min_dst}"
+        )
     t_tiles = r // ray_tile
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(cmin, "cmin", torch.float32, (c, 3), dev)
@@ -174,8 +200,8 @@ def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, wan
 
 def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
     """Launch B2 (contract: ``ops.chunk_intersect.run_items_plain``).  The
-    kernel reads a triangle-major copy of ``chunk_woop`` ([Cpad, cw, 12],
-    made here) and the unit prefix sum of ``item_unit_offsets``."""
+    kernel reads the triangle-major copy of ``chunk_woop`` ([Cpad, cw, 12],
+    ``triangle_major``) and the unit prefix sum of ``item_unit_offsets``."""
     from .ops.chunk_intersect import item_unit_offsets
 
     dev = rays.device
@@ -197,7 +223,7 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
     _check(masks, "masks", torch.int32, (t_tiles, cap, n_words), dev)
-    woop_t = chunk_woop.transpose(1, 2).contiguous()
+    woop_t = triangle_major(chunk_woop)
     offsets = item_unit_offsets(counts, masks, group, n_sub)
     keys = torch.empty((r,), dtype=torch.int64, device=dev)
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -219,8 +245,9 @@ PDF_SEGMENT = 4
 
 def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
     """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``).
-    The kernel reads a triangle-major copy of ``cluster_woop`` ([C, cw, 12],
-    made here) and writes per-segment partial sums to scratch [n_seg, R]."""
+    The kernel reads the triangle-major copy of ``cluster_woop`` ([C, cw, 12],
+    ``triangle_major``) and writes per-segment partial sums to scratch
+    [n_seg, R]."""
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
@@ -233,7 +260,7 @@ def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
     _check(cluster_k, "cluster_k", torch.float32, (c, cw), dev)
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
-    woop_t = cluster_woop.transpose(1, 2).contiguous()
+    woop_t = triangle_major(cluster_woop)
     partial = torch.empty((-(-cap // PDF_SEGMENT), r), dtype=torch.float32, device=dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -302,18 +329,27 @@ def dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
     return t_out, tri_out
 
 
+# B6 stages two groups of ``group`` chunks at once: what a block may hold.
+_SLOTS_SMEM_BYTES = 227 * 1024 - 128
+
+
 def slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
-    """Launch B6 (contract: ``ops.chunk_intersect.run_slots_plain``)."""
+    """Launch B6 (contract: ``ops.chunk_intersect.run_slots_plain``).  The
+    kernel reads the triangle-major copy of ``chunk_woop`` ([Cpad, cw, 12],
+    ``triangle_major``) and the unit prefix sum of ``slot_unit_offsets``."""
+    from .ops.chunk_intersect import slot_unit_offsets
+
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
     n_words = masks.shape[2]
     cpad, _, cw = chunk_woop.shape
     ray_tile = r // t_tiles if t_tiles else 0
-    if (t_tiles == 0 or r % t_tiles or ray_tile > 1024 or ray_tile % n_sub
-            or cpad % group or n_words * 4 < group):
+    if (t_tiles == 0 or r % t_tiles or ray_tile % n_sub or not 1 <= n_sub <= 8
+            or cpad % group or n_words * 4 < group or group > 32 or cw % 4
+            or 2 * group * cw * 48 > _SLOTS_SMEM_BYTES or t_tiles * cap * 8 * group >= 2**31):
         raise ValueError(
-            f"slots: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words}"
+            f"slots: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words} cw={cw}"
         )
     _check_key_bound(min_dst, cap * group * cw, "slots")
     _check(rays, "rays", torch.float32, (r, 8), dev)
@@ -323,13 +359,15 @@ def slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
     _check(masks, "masks", torch.int32, (t_tiles, cap, n_words), dev)
+    woop_t = triangle_major(chunk_woop)
+    offsets = slot_unit_offsets(counts, masks, group, n_sub)
     keys = torch.empty((r,), dtype=torch.int64, device=dev)
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = library("mode_kernels").tpt_slots(
-            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(chunk_woop), _ptr(idx), _ptr(counts),
-            _ptr(masks), r, t_tiles, cap, n_words, group, n_sub, cw, float(min_dst),
+            _ptr(rays), _ptr(tmin0), _ptr(tidx0), _ptr(woop_t), _ptr(idx), _ptr(masks),
+            _ptr(offsets), r, t_tiles, cap, n_words, group, n_sub, cw, float(min_dst),
             _ptr(keys), _ptr(t_out), _ptr(tri_out), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "slots")

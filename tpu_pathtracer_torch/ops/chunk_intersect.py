@@ -27,8 +27,8 @@ but the last, by a comparison of the initial pass's sub-tile entry minima
 with each sub-tile's largest best t (plain tensor code, looser, exact all
 the same).  The other modes:
 
-  twopass    the same cascade with the slot grid (kernel B6: one block per
-             (tile, slot)) in place of B2;
+  twopass    the same cascade with the slot grid (kernel B6: a slot's
+             group of chunks staged as one block) in place of B2;
   dense      every (tile, chunk) pair whose activity bit is set, in one
              bit-gated grid — kernel B5;
   bins       no tile prepass: per-ray group bits (kernel B7), group-major
@@ -301,6 +301,20 @@ def run_items_plain(
     return t.reshape(r), tri.reshape(r)
 
 
+def _item_unit_counts(counts: torch.Tensor, masks: torch.Tensor, group: int, n_sub: int):
+    """[T, cap, group] int32: the set sub-tile bits of each chunk item (tile,
+    slot, g), 0 for the slots past a tile's count.  Pure tensor code with no
+    copy to or from the host (a blocking copy would make the host wait for
+    the device at every launch)."""
+    cap = masks.shape[1]
+    # Byte g of a slot's words is chunk g's sub-tile bits (little-endian).
+    byte = masks.view(torch.uint8)[:, :, :group]
+    shifts = torch.arange(n_sub, dtype=torch.uint8, device=masks.device)
+    units = ((byte[..., None] >> shifts) & 1).sum(dim=3, dtype=torch.int32)
+    live = torch.arange(cap, device=masks.device)[None, :] < counts[:, None]
+    return units * live[:, :, None]
+
+
 def item_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_sub: int):
     """The B2 kernel's flattened unit list, in compressed form.
 
@@ -310,16 +324,20 @@ def item_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_s
     item = (tile * cap + slot) * group + g.  Returns the inclusive prefix
     sum of the items' unit counts, [T * cap * group] int32: the units of
     item j are numbers offsets[j-1] .. offsets[j]-1, and offsets[-1] is the
-    total.  Pure tensor code with no copy to or from the host (a blocking
-    copy would make the host wait for the device at every launch)."""
-    t_tiles, cap, _ = masks.shape
-    g = torch.arange(group, device=masks.device)
-    byte = (masks[:, :, g // 4] >> (8 * (g % 4)).to(torch.int32)) & ((1 << n_sub) - 1)
-    live = torch.arange(cap, device=masks.device)[None, :] < counts[:, None]
-    byte = torch.where(live[:, :, None], byte, torch.zeros_like(byte))
-    byte = byte - ((byte >> 1) & 0x55)  # popcount of a byte, two bits at a time
-    byte = (byte & 0x33) + ((byte >> 2) & 0x33)
-    return torch.cumsum(((byte + (byte >> 4)) & 0x0F).reshape(-1), 0, dtype=torch.int32)
+    total."""
+    units = _item_unit_counts(counts, masks, group, n_sub)
+    return torch.cumsum(units.reshape(-1), 0, dtype=torch.int32)
+
+
+def slot_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_sub: int):
+    """The B6 kernel's unit list: the same units in the same order as
+    ``item_unit_offsets``, counted per slot.  Returns the inclusive prefix
+    sum of the slots' unit counts, [T * cap] int32, slot = tile * cap + s: a
+    slot past its tile's count, or with no set bit, has no unit (its entry
+    equals the one before), the units of slot j are numbers offsets[j-1] ..
+    offsets[j]-1 in (chunk, sub-tile) order, and offsets[-1] is the total."""
+    units = _item_unit_counts(counts, masks, group, n_sub).sum(dim=2)
+    return torch.cumsum(units.reshape(-1), 0, dtype=torch.int32)
 
 
 def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
@@ -403,8 +421,8 @@ run_dense.launches = 0
 
 # Plain twin of the B6 kernel.  The slot grid computes the function B2
 # computes (tile i, slots s < counts[i] in slot order, strict <), so its twin
-# is B2's; the kernels differ in how the card runs it (one block per (tile,
-# slot) against one per tile).
+# is B2's; the kernels differ in how the card runs it (a slot's whole group
+# staged once for a block's warps against one chunk staged per unit).
 run_slots_plain = run_items_plain
 
 

@@ -19,7 +19,8 @@ warm-up render at 1 spp, three times:
   the device's busy milliseconds per iteration (the sum of its kernel and
   memory-operation times: the render runs on one stream) against the wall
   of this render and of the timed one, the kernels that take the most
-  device time, and the intersector's Woop kernel by pass.
+  device time, and the activity kernel (B1) and the intersector's Woop
+  kernel (B2 or B6) by their place among an iteration's launches.
 
 Prints one JSON line per case, then the card's ``nvidia-smi`` name, power
 limit, SM clock and power draw.
@@ -148,11 +149,14 @@ def _device_times(prof):
 
 
 def _per_pass(prof, iterations):
-    """Mean device ms of the intersector's Woop kernel (B2 ``items_kernel``
-    or B6 ``slots_kernel``) by its place among an iteration's launches
-    (with the default ladder: near pass 1, near pass 2, residual)."""
+    """Mean device ms of B1 (``activity_kernel``) and of the intersector's
+    Woop kernel (B2 ``items_kernel`` or B6 ``slots_kernel``) by their place
+    among an iteration's launches.  With the default ladder the Woop kernel
+    runs near pass 1, near pass 2 and the residual; B1 runs the super-block
+    gate, the initial pass and the recheck after each near pass (then the
+    light clusters' boxes on a many-light scene)."""
     out = {}
-    for key in ("items_kernel", "slots_kernel"):
+    for key in ("activity_kernel", "items_kernel", "slots_kernel"):
         evs = sorted((e for e in prof.events()
                       if key in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")),
                      key=lambda e: e.time_range.start)
@@ -195,7 +199,7 @@ def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
             # timed render's wall per iteration is the share without it.
             "device_busy_share_of_timed": busy / n / (seconds * 1e3 / iters) if dev else None,
             "device_ops_per_iteration": sum(c for _, c in dev.values()) / n if dev else None,
-            "woop_kernel_ms_by_pass": _per_pass(prof, n),
+            "kernel_ms_by_pass": _per_pass(prof, n),
             "top": [{"name": k[:120], "ms_per_iteration": ms / n, "share_of_busy": ms / busy,
                      "count": c, "ms_per_call": ms / c} for k, (ms, c) in top],
         },
