@@ -38,9 +38,19 @@ just before and read just after:
                    "items" render at 4 spp;
   engine           the atrium through the scan engine with Sobol jitter and
                    bounce draws at 4 spp;
+  renderer         two ``look_at`` frames of the atrium through ``Renderer``
+                   (no re-upload of the scene, no kernel rebuild);
 
-and checks the Cornell goldens (plain, environment map PNG and HDR, light
-triangle, Sobol bounce draws, Sobol jitter) at 64x64 @ 64 spp.
+checks the Cornell goldens (plain, environment map PNG and HDR, light
+triangle, Sobol bounce draws, Sobol jitter) at 64x64 @ 64 spp and, in phase
+goldens_more, the textured Cornell at 64x64 and the plain one at 96x64; and
+renders the homebrew ``.txt`` scenes (no kernel: plain torch):
+
+  homebrew         a Whitted scene at RAY_DEPTH 8 and a Monte-Carlo scene,
+                   card against CPU at 64x48, then timed at 640x480 (the
+                   Monte-Carlo one at 64 spp);
+  cli_txt          both through ``python -m tpu_pathtracer_torch`` at
+                   160x120 in a process of their own.
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero without the final line.  The last two lines before the final one
@@ -54,6 +64,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -655,9 +666,11 @@ def phase_modes(scene, rays_sets, brutes):
     return ms
 
 
-def phase_golden(tmp, config=None, phase="golden"):
-    """Cornell 64x64 @ 64 spp through the port (dense path) against the
-    committed 4096-spp golden: rmse < 14, |mean difference| < 3 (u8)."""
+def phase_golden(tmp, config=None, phase="golden", make="make_cornell_gltf",
+                 golden="cornell_64x64_4096spp.ppm", size=(64, 64)):
+    """A fixture (default Cornell, 64x64) at 64 spp through the port against
+    the committed 4096-spp golden of the reference: rmse < 14, |mean
+    difference| < 3 (u8)."""
     import dataclasses
 
     import numpy as np
@@ -667,21 +680,22 @@ def phase_golden(tmp, config=None, phase="golden"):
     from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
     from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
 
-    p = fixtures.make_cornell_gltf(os.path.join(tmp, "cornell", "cornell.gltf"))
-    scene = parse_gltf_scene(p, 1.0)
-    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 64)).to(DEV)
+    w, h = size
+    p = getattr(fixtures, make)(os.path.join(tmp, make, "scene.gltf"))
+    scene = parse_gltf_scene(p, w / h)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(w, h)).to(DEV)
     t0 = time.perf_counter()
     img = render(scene, spp=64, seed=0, config=config)
     secs = time.perf_counter() - t0
     ours = quantize_u8(torch.from_numpy(img)).numpy().astype(np.float64)
-    ref = read_ppm(os.path.join(ROOT, "tests", "golden", "cornell_64x64_4096spp.ppm")).astype(np.float64)
+    ref = read_ppm(os.path.join(ROOT, "tests", "golden", golden)).astype(np.float64)
     rmse = float(np.sqrt(((ours - ref) ** 2).mean()))
     dmean = float(abs(ours.mean() - ref.mean()))
-    emit(phase, scene="cornell 64x64@64spp", rmse=rmse, abs_mean_diff=dmean,
+    emit(phase, scene=f"{make} {w}x{h}@64spp", golden=golden, rmse=rmse, abs_mean_diff=dmean,
          seconds=round(secs, 3), **({} if config is None else dict(
              jitter=config.jitter, lowdisc=config.lowdisc)))
-    if not (rmse < 14.0 and dmean < 3.0):
-        raise AssertionError("Cornell golden failed")
+    if ours.shape != ref.shape or not (rmse < 14.0 and dmean < 3.0):
+        raise AssertionError(f"golden {golden} failed")
 
 
 def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None, spp=None):
@@ -716,7 +730,7 @@ def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None, 
                 metrics = err.getvalue().strip().splitlines()[-1]
             else:
                 rc = 0
-                hdr, m = cli.render_scene_file(path, W, H, spp, torch.device(DEV), config)
+                hdr, m = cli.render_scene_file(path, W, H, spp, config, device=torch.device(DEV))
                 write_ppm(out, quantize_u8(torch.from_numpy(hdr)).numpy())
                 metrics = m.to_json()
         total = time.perf_counter() - t0
@@ -974,6 +988,179 @@ def phase_sort_keys(path, hint):
     return out
 
 
+# Homebrew scenes: every primitive kind (moved and rotated), every material
+# kind; the Whitted scene lit by both light kinds at RAY_DEPTH 8, the
+# Monte-Carlo scene by an emissive triangle.
+_HB_CAMERA = """
+CAMERA_POSITION 0 1.2 4.5
+CAMERA_RIGHT 1 0 0
+CAMERA_UP 0 1 0
+CAMERA_FORWARD 0 0 -1
+CAMERA_FOV_X 1.1
+"""
+_HB_PRIMS = """
+NEW_PRIMITIVE
+PLANE 0 1 0
+COLOR 0.6 0.8 0.6
+NEW_PRIMITIVE
+ELLIPSOID 0.6 0.9 0.6
+POSITION -1 0.9 0
+ROTATION 0 0.3826834 0 0.9238795
+COLOR 1 0.6 0.6
+DIELECTRIC
+IOR 1.5
+NEW_PRIMITIVE
+BOX 0.4 0.4 0.4
+POSITION 1 0.4 -0.5
+ROTATION 0.2 0.3 0.1 0.9273618
+COLOR 0.9 0.9 0.3
+METALLIC
+NEW_PRIMITIVE
+ELLIPSOID 0.35 0.35 0.35
+POSITION 0.3 0.35 1
+COLOR 0.5 0.5 0.9
+NEW_PRIMITIVE
+TRIANGLE -2.5 0 -2 2.5 0 -2 0 3 -2
+"""
+HOMEBREW = {
+    "whitted": "DIMENSIONS 640 480\nRAY_DEPTH 8\nBG_COLOR 0.1 0.2 0.4\nAMBIENT_LIGHT 0.1 0.1 0.1\n"
+    "NEW_LIGHT\nLIGHT_POSITION 1 4 2\nLIGHT_INTENSITY 6 6 6\nLIGHT_ATTENUATION 1 0.1 0.05\n"
+    "NEW_LIGHT\nLIGHT_DIRECTION 0.3 1 0.2\nLIGHT_INTENSITY 0.5 0.5 0.4\n"
+    + _HB_CAMERA + _HB_PRIMS + "COLOR 0.3 0.3 1\n",
+    "mc": "DIMENSIONS 640 480\nRAY_DEPTH 6\nSAMPLES 64\nBG_COLOR 0.3 0.3 0.35\n"
+    + _HB_CAMERA + _HB_PRIMS + "COLOR 0 0 0\nEMISSION 4 3 2\n",
+}
+
+
+def write_homebrew(tmp):
+    paths = {}
+    for name, text in HOMEBREW.items():
+        paths[name] = os.path.join(tmp, f"homebrew_{name}.txt")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    return paths
+
+
+def phase_homebrew(tmp):
+    """Each homebrew scene rendered by the port on the card and on the CPU
+    at 64x48 (the Monte-Carlo scene at 8 spp) must agree to the render
+    tests' u8 rule (``fp_noise``: the card's elementwise kernels may round
+    a product in another order, which can flip a Russian-roulette coin);
+    then each is timed on the card at 640x480, the Monte-Carlo scene at 64
+    spp, beside the card's name and power limit."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.models.legacy import render_homebrew
+    from tpu_pathtracer_torch.scene.homebrew import parse_homebrew_scene
+    from tpu_pathtracer_torch.utils.image import quantize_u8
+
+    u8 = lambda hdr: quantize_u8(torch.from_numpy(hdr)).numpy()
+    for name, path in write_homebrew(tmp).items():
+        scene = parse_homebrew_scene(path)
+        small = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 48),
+                                    samples=8 if scene.monte_carlo else None)
+        t0 = time.perf_counter()
+        cpu = render_homebrew(small, seed=0)
+        cpu_s = time.perf_counter() - t0
+        card = render_homebrew(small.to(DEV), seed=0)
+        share, dmean, ok = fp_noise(u8(cpu), u8(card))
+        full = scene.to(DEV)
+        w, h = scene.camera.width, scene.camera.height
+        render_homebrew(full, seed=1)  # warm-up: the allocator's first blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_homebrew(full, seed=0)
+        secs = time.perf_counter() - t0
+        emit("homebrew", scene=name, monte_carlo=scene.monte_carlo, ray_depth=scene.ray_depth,
+             primitives=int(scene.valid.sum()), check="64x48 card vs cpu",
+             hdr_max_abs_diff=float(np.abs(cpu - card).max()), u8_off_by_more_than_1=share,
+             abs_mean_diff=dmean, cpu_seconds=round(cpu_s, 3),
+             timed=f"{w}x{h}@{scene.samples or 1}spp", seconds_render=secs,
+             pixel_samples_per_s=w * h * (scene.samples or 1) / secs,
+             hdr_finite=bool(np.isfinite(img).all()), u8_mean=float(u8(img).mean()),
+             nvidia_smi=card_line())
+        if not ok or not np.isfinite(card).all() or img.shape != (h, w, 3):
+            raise AssertionError(f"homebrew {name}: the card disagrees with the CPU")
+
+
+def phase_cli_txt(tmp):
+    """``python -m tpu_pathtracer_torch scene.txt 160 120 1 out.ppm`` on the
+    card, in its own process: exit 0, a 160x120 P6, and both the
+    ``phases_seconds`` line and the metrics line on stderr."""
+    from tpu_pathtracer_torch.utils.image import read_ppm
+
+    out = os.path.join(tmp, "cli_txt.ppm")
+    env = {k: v for k, v in os.environ.items() if k != "TPU_PATHTRACER_TORCH_DEVICE"}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    rows = {}
+    for name, path in write_homebrew(tmp).items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_pathtracer_torch", path, "160", "120", "1", out],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        lines = proc.stderr.strip().splitlines()
+        phases = json.loads(lines[-2]).get("phases_seconds") if len(lines) >= 2 else None
+        metrics = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+        shape = list(read_ppm(out).shape) if proc.returncode == 0 else None
+        rows[name] = dict(rc=proc.returncode, process_seconds=round(secs, 3),
+                          phases_seconds=phases, metrics=metrics, ppm_shape=shape)
+        emit("cli_txt", scene=name, **rows[name])
+        if proc.returncode != 0 or phases is None or "render_seconds" not in metrics \
+                or shape != [120, 160, 3]:
+            raise AssertionError(f"cli_txt {name}: {proc.stderr[-2000:]}")
+    return rows
+
+
+def phase_renderer(path):
+    """A ``Renderer`` on the atrium, two ``look_at`` frames at 512x512 @ 16
+    spp, each with the launch counters set to 0 just before and read just
+    after: B1 and B2 launch in both, the frames differ, the scene's tensors
+    keep their device addresses, and no kernel library is built again.
+    The second frame is timed."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.renderer import Renderer
+
+    builds = []
+    real_build = kernels.build
+    kernels.build = lambda *a, **k: builds.append(1) or real_build(*a, **k)
+    try:
+        r = Renderer(path, aspect_ratio=W / H, device=torch.device(DEV))
+        tensors = lambda s: {f.name: getattr(s, f.name).data_ptr() for f in dataclasses.fields(s)
+                             if isinstance(getattr(s, f.name), torch.Tensor)}
+        ptrs = tensors(r.scene)
+        cam = r.camera
+        eye = cam.position.cpu().numpy()
+        fwd = cam.forward.cpu().numpy()
+        frames, launches, secs = [], [], []
+        for shift in (0.0, 0.6):
+            r.look_at(eye=eye + np.array([shift, 0.0, 0.0]), target=eye + 10 * fwd)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames.append(r.render(W, H, SPP, seed=0))
+            secs.append(time.perf_counter() - t0)
+            launches.append(read_launches())
+        same = tensors(r.scene) == ptrs
+    finally:
+        kernels.build = real_build
+    diff = float(np.abs(frames[0] - frames[1]).mean())
+    emit("renderer", scene="atrium 512x512@16spp, two look_at frames", seconds_render=secs,
+         second_frame_seconds=secs[1], pixel_samples_per_s=W * H * SPP / secs[1],
+         launches=launches, scene_tensors_kept=same, kernel_builds=len(builds),
+         frames_mean_abs_diff=diff, hdr_finite=bool(all(np.isfinite(f).all() for f in frames)))
+    if not same or builds or diff == 0 or any(l["b1"] == 0 or l["b2"] == 0 for l in launches) \
+            or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("renderer: a camera move re-uploaded, rebuilt or rendered wrong")
+    return launches
+
+
 # Why no kernel has a ``library_ms``: no single PyTorch call computes the
 # same function (each is a slab or Woop test fused with a minimum, an any
 # or a masked sum, over a worklist that depends on the data).
@@ -1115,6 +1302,13 @@ def main():
         sort_rows = phase_sort_keys(path, main_row)
         mode_rows = phase_modes_render(path, tmp, main_row)
         phase_engine(path, tmp)
+        phase_homebrew(tmp)
+        phase_cli_txt(tmp)
+        phase_renderer(path)
+        phase_golden(tmp, phase="goldens_more", make="make_textured_cornell_gltf",
+                     golden="textured_64x64_4096spp.ppm")
+        phase_golden(tmp, phase="goldens_more", golden="cornell_96x64_4096spp.ppm",
+                     size=(96, 64))
 
     # Each kernel's launches on its own path: B1/B2 the main render, B3 the
     # lit-banner render, B4 the "target" key, B5 the "dense" render, B6 the

@@ -135,7 +135,7 @@ def test_torch_cli_sobol_env(tmp_path, monkeypatch):
     path = make_cornell_gltf(str(tmp_path / "c.gltf"))
     monkeypatch.setenv("TPU_PATHTRACER_JITTER", "sobol")
     monkeypatch.setenv("TPU_PATHTRACER_LOWDISC", "sobol")
-    hdr, _ = cli.render_scene_file(path, 8, 8, 2, torch.device("cpu"))
+    hdr, _ = cli.render_scene_file(path, 8, 8, 2, device=torch.device("cpu"))
     want = pt.render(_cornell(tmp_path, 8, 8), spp=2, seed=0,
                      config=RenderConfig(jitter="sobol", lowdisc="sobol"))
     np.testing.assert_array_equal(hdr, want)

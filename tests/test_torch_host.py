@@ -13,6 +13,8 @@ import pytest
 
 from tpu_pathtracer import config as jcfg
 from tpu_pathtracer.scene import accel as jaccel
+from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
+from tpu_pathtracer.utils import fuzz as jfuzz
 from tpu_pathtracer.utils import hdr as jhdr
 from tpu_pathtracer.utils import metrics as jmetrics
 from tpu_pathtracer.utils import testscenes
@@ -20,6 +22,8 @@ from tpu_pathtracer_torch import config as tcfg
 from tpu_pathtracer_torch.scene import accel as taccel
 from tpu_pathtracer_torch.scene import fixtures, native
 from tpu_pathtracer_torch.scene.gltf import build_woop
+from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene as torch_parse
+from tpu_pathtracer_torch.utils import fuzz as tfuzz
 from tpu_pathtracer_torch.utils import hdr as thdr
 from tpu_pathtracer_torch.utils import metrics as tmetrics
 
@@ -77,7 +81,9 @@ def _same_tree(a, b):
     ("make_sphere_field_gltf", {"n_spheres": 3, "subdiv": 2, "textured": True}),
     ("make_atrium_gltf", {"detail": 1, "textured": False}),
     ("make_atrium_gltf", {"detail": 1, "textured": True}),
-], ids=["cornell", "cornell_light", "field", "field_textured", "atrium", "atrium_textured"])
+    ("make_textured_cornell_gltf", {}),
+], ids=["cornell", "cornell_light", "field", "field_textured", "atrium", "atrium_textured",
+        "textured_cornell"])
 def test_torch_fixture_files_match_jax(tmp_path, name, kwargs):
     """Each glTF generator writes byte-identical .gltf, .bin and textures."""
     want = getattr(testscenes, name)(str(tmp_path / "jax" / "s.gltf"), **kwargs)
@@ -186,3 +192,41 @@ def test_torch_render_metrics_json_matches_jax(measured):
     got = json.loads(tmetrics.RenderMetrics(**kw).to_json())
     want = json.loads(jmetrics.RenderMetrics(**kw).to_json())
     assert list(got) == list(want) and got == want
+
+
+# The seeds of tests/test_fuzz_parity.py, and the maximal asset.
+FUZZ = [("make_fuzz_gltf", {"seed": s}) for s in (11, 23, 47, 104, 111, 117)] + [
+    ("make_maximal_gltf", {"seed": 5})]
+FUZZ_IDS = [f"fuzz{kw['seed']}" for _, kw in FUZZ[:-1]] + ["maximal"]
+
+
+@pytest.mark.parametrize("name,kwargs", FUZZ, ids=FUZZ_IDS)
+def test_torch_fuzz_files_match_jax(tmp_path, name, kwargs):
+    """Each fuzz scene and the maximal asset: byte-identical .gltf, .bin and
+    PNG / JPEG textures."""
+    want = getattr(jfuzz, name)(str(tmp_path / "jax" / "s.gltf"), **kwargs)
+    got = getattr(tfuzz, name)(str(tmp_path / "port" / "s.gltf"), **kwargs)
+    assert os.path.basename(got) == os.path.basename(want)
+    _same_tree(tmp_path / "jax", tmp_path / "port")
+
+
+@pytest.mark.parametrize("name,kwargs", FUZZ, ids=FUZZ_IDS)
+def test_torch_loader_matches_jax_on_fuzz_scenes(tmp_path, name, kwargs):
+    """The port's glTF loader on each fuzz scene and on the maximal asset
+    (strips, instanced and nested nodes, raw matrices, u8/u16/u32 indices,
+    JPEG and PNG textures, every texture slot): every array it holds equals
+    the JAX loader's, bit for bit, and so do the static fields."""
+    from test_torch_scene import jax_scene_arrays, scene_arrays
+
+    path = getattr(tfuzz, name)(str(tmp_path / "s.gltf"), **kwargs)
+    js, ts = jax_parse(path, 1.5), torch_parse(path, 1.5)
+    want, statics = jax_scene_arrays(js)
+    got = scene_arrays(ts)
+    assert set(got) <= set(want), set(got) - set(want)
+    for key, arr in got.items():
+        assert arr.dtype == want[key].dtype and arr.shape == want[key].shape, key
+        np.testing.assert_array_equal(arr, want[key], err_msg=key)
+    assert ts.ray_depth == statics["ray_depth"] and ts.tex_slots == statics["tex_slots"]
+    if name == "make_maximal_gltf":
+        assert ts.atlas.offset.shape[0] >= 66 and ts.tex_slots == (True,) * 4
+        assert int(ts.valid.sum()) == 5 * 2 + 2 + 8 * 3 + 8 * 2 + 24 * 6

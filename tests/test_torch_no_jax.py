@@ -13,22 +13,19 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tpu_pathtracer_torch")
 
-MODULES = [
-    "tpu_pathtracer_torch",
-    "tpu_pathtracer_torch.cli",
-    "tpu_pathtracer_torch.bridge",
-    "tpu_pathtracer_torch.config",
-    "tpu_pathtracer_torch.kernels",
-    "tpu_pathtracer_torch.models.pathtracer",
-    "tpu_pathtracer_torch.ops.chunk_intersect",
-    "tpu_pathtracer_torch.scene.accel",
-    "tpu_pathtracer_torch.scene.fixtures",
-    "tpu_pathtracer_torch.scene.gltf",
-    "tpu_pathtracer_torch.scene.native",
-    "tpu_pathtracer_torch.utils.hdr",
-    "tpu_pathtracer_torch.utils.image",
-    "tpu_pathtracer_torch.utils.metrics",
-]
+
+def _port_modules():
+    """Every module of the port but ``__main__`` (which runs the CLI)."""
+    out = []
+    for base, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py") and f != "__main__.py":
+                rel = os.path.relpath(os.path.join(base, f[:-3]), ROOT)
+                out.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(out)
+
+
+MODULES = _port_modules()
 
 
 def _forbidden(name: str) -> bool:
@@ -52,6 +49,18 @@ def test_torch_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+NEW_IN_THIS_SLICE = ("models/legacy.py", "ops/primitives.py", "scene/homebrew.py",
+                     "renderer.py", "utils/profiling.py", "utils/fuzz.py")
+
+
+def test_torch_port_scans_cover_every_module():
+    """Both checks cover every module, the homebrew slice's included."""
+    assert len(MODULES) >= 30
+    for rel in NEW_IN_THIS_SLICE:
+        assert "tpu_pathtracer_torch." + rel[:-3].replace("/", ".") in MODULES, rel
+        assert os.path.join(PORT, rel) in _sources(), rel
 
 
 def _sources():

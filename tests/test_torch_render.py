@@ -3,7 +3,10 @@ the same scene arrays (default and non-default configurations), the Cornell
 golden, the CLI contract, and the refusal of unknown configuration values."""
 
 import dataclasses
+import inspect
+import json
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ import pytest
 import torch
 
 from tpu_pathtracer.cli import main as jax_main
+from tpu_pathtracer.cli import render_scene_file as jax_render_scene_file
 from tpu_pathtracer.models.pathtracer import render as jax_render
 from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
 from tpu_pathtracer.utils.image import quantize_u8 as jax_quantize
@@ -22,6 +26,7 @@ from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
+from tpu_pathtracer_torch.utils.profiling import PhaseTimer
 from test_torch_scene import jax_config, jax_scene_arrays
 
 torch.set_num_threads(1)
@@ -110,9 +115,35 @@ def test_torch_cli_errors_match_jax(tmp_path, capsys, monkeypatch):
         assert capsys.readouterr().err == want
 
 
+_WHITTED_TXT = """DIMENSIONS 8 8
+RAY_DEPTH 3
+BG_COLOR 0.1 0.2 0.4
+AMBIENT_LIGHT 0.1 0.1 0.1
+NEW_LIGHT
+LIGHT_POSITION 1 4 2
+LIGHT_INTENSITY 6 6 6
+CAMERA_POSITION 0 1 4
+CAMERA_FORWARD 0 0 -1
+CAMERA_FOV_X 1.2
+NEW_PRIMITIVE
+PLANE 0 1 0
+COLOR 0.6 0.8 0.6
+NEW_PRIMITIVE
+ELLIPSOID 0.6 0.6 0.6
+POSITION 0 0.6 0
+COLOR 0.9 0.9 0.9
+DIELECTRIC
+"""
+_MC_TXT = _WHITTED_TXT.replace("RAY_DEPTH 3", "RAY_DEPTH 3\nSAMPLES 4") + """NEW_PRIMITIVE
+TRIANGLE -2 3 -2 2 3 -2 0 3 2
+EMISSION 4 4 4
+"""
+
+
 def test_torch_cli_device_and_slice(tmp_path, capsys, monkeypatch):
-    """The CLI refuses to fall back to the CPU silently, refuses homebrew
-    scenes, and renders a P6 PPM plus the metrics JSON with the CPU opt-in."""
+    """The CLI refuses to fall back to the CPU silently; with the CPU opt-in
+    it renders glTF and homebrew scenes (Whitted and Monte-Carlo) to a P6
+    PPM and prints the phase seconds, then the metrics JSON."""
     path = make_cornell_gltf(str(tmp_path / "c" / "cornell.gltf"))
     out = str(tmp_path / "out" / "img.ppm")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -120,14 +151,57 @@ def test_torch_cli_device_and_slice(tmp_path, capsys, monkeypatch):
     assert cli.main(["prog", path, "16", "12", "2", out]) == 1
     assert "TPU_PATHTRACER_TORCH_DEVICE=cpu" in capsys.readouterr().err
     monkeypatch.setenv("TPU_PATHTRACER_TORCH_DEVICE", "cpu")
-    txt = tmp_path / "scene-000.txt"
-    txt.write_text("DIMENSIONS 8 8\n")
-    assert cli.main(["prog", str(txt), "8", "8", "1", out]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    for name, text in (("scene-000.txt", _WHITTED_TXT), ("practice5.txt", _MC_TXT)):
+        txt = tmp_path / name
+        txt.write_text(text)
+        assert cli.main(["prog", str(txt), "32", "24", "1", out]) == 0
+        lines = capsys.readouterr().err.strip().splitlines()
+        assert list(json.loads(lines[-2])["phases_seconds"]) == ["load_render", "tonemap_write"]
+        assert json.loads(lines[-1])["ray_depth"] == 3
+        img = read_ppm(out)
+        assert img.shape == (24, 32, 3) and img.mean() > 0
     assert cli.main(["prog", path, "16", "12", "2", out]) == 0
-    assert '"measured_rays"' in capsys.readouterr().err.strip().splitlines()[-1]
+    lines = capsys.readouterr().err.strip().splitlines()
+    phases = json.loads(lines[-2])["phases_seconds"]
+    assert set(phases) == {"load_render", "tonemap_write", "dispatch", "device_wait_readback"}
+    assert '"measured_rays"' in lines[-1]
     img = read_ppm(out)
     assert img.shape == (12, 16, 3) and img.mean() > 0
+
+
+def test_torch_cli_homebrew_matches_jax(tmp_path, monkeypatch):
+    """A homebrew Monte-Carlo scene through the port's CLI and the JAX
+    package's ``render_scene_file`` (the sample count of the command line
+    replaces SAMPLES): the same image to fp noise."""
+    monkeypatch.setenv("TPU_PATHTRACER_TORCH_DEVICE", "cpu")
+    txt = tmp_path / "practice5.txt"
+    txt.write_text(_MC_TXT)
+    hdr, metrics = jax_render_scene_file(str(txt), 12, 10, 3, progress=False)
+    assert metrics.samples == 3
+    out = str(tmp_path / "port.ppm")
+    assert cli.main(["prog", str(txt), "12", "10", "3", out]) == 0
+    want = np.asarray(jax_quantize(jnp.asarray(hdr))).astype(int)
+    _assert_fp_noise(want, read_ppm(out).astype(int))
+
+
+def test_torch_render_scene_file_takes_jax_parameters(tmp_path):
+    """``render_scene_file`` takes the JAX package's parameters in its order,
+    then ``device``: a config passed fifth is the config, the seed sixth is
+    the seed."""
+    jax_params = list(inspect.signature(jax_render_scene_file).parameters)
+    assert list(inspect.signature(cli.render_scene_file).parameters) == jax_params + ["device"]
+    path = make_cornell_gltf(str(tmp_path / "c.gltf"))
+    cpu = torch.device("cpu")
+    config = RenderConfig(jitter="sobol")
+    hdr, metrics = cli.render_scene_file(path, 8, 8, 2, config, 5, False, None, cpu)
+    want = pt.render(_cornell_scene(path, 8, 8), spp=2, seed=5, config=config)
+    np.testing.assert_array_equal(hdr, want)
+    assert metrics.samples == 2
+
+
+def _cornell_scene(path, w, h):
+    scene = parse_gltf_scene(path, w / h)
+    return dataclasses.replace(scene, camera=scene.camera.with_dims(w, h))
 
 
 @pytest.mark.parametrize(
@@ -186,3 +260,83 @@ def test_torch_render_retries_failed_chunk(tmp_path, monkeypatch):
     monkeypatch.setattr(pt, "render_chunk_persistent", flaky)
     np.testing.assert_array_equal(pt.render(scene, spp=3, seed=4), want)
     assert failures == [1]
+
+
+def test_torch_render_retry_ticks_each_tile_once(tmp_path, monkeypatch, capsys):
+    """An execution that raises (any exception, here on the second of three
+    passes) is recomputed: the frame and its measured rays equal an
+    undisturbed render's, each tile's progress tick is printed once, and the
+    timer saw every engine call and the one readback."""
+    scene = _cornell_scene(make_cornell_gltf(str(tmp_path / "c.gltf")), 16, 16)
+    config = RenderConfig(spp_per_pass=1)
+    want_stats = {}
+    want = pt.render(scene, spp=3, seed=4, config=config, stats=want_stats)
+    real = pt.render_chunk_persistent
+    calls = []
+
+    def flaky(*args, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise Exception("simulated out-of-memory")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pt, "render_chunk_persistent", flaky)
+    capsys.readouterr()
+    timer, stats = PhaseTimer(), {}
+    got = pt.render(scene, spp=3, seed=4, config=config, progress=True, timer=timer, stats=stats)
+    np.testing.assert_array_equal(got, want)
+    assert stats == want_stats
+    err = capsys.readouterr().err
+    assert re.findall(r"(\d+)/3 +\r", err) == ["0", "1", "2"]
+    assert "simulated out-of-memory" in err and "retrying (1/2)" in err
+    assert len(calls) == 5  # one pass, the failed pass, the chunk's three again
+    assert timer.counts == {"dispatch": 5, "device_wait_readback": 1}
+
+
+def test_torch_render_without_light_rows_matches_jax(tmp_path):
+    """A scene carried over through ``bridge.scene_from_arrays`` with a light
+    set of zero rows: the mixture is the cosine lobe alone, as in the JAX
+    package; the render is finite and matches the JAX render of the same
+    arrays to fp noise."""
+    path = make_cornell_gltf(str(tmp_path / "c" / "cornell.gltf"))
+    w = h = 16
+    js = jax_parse(path, 1.0)
+    no_lights = dataclasses.replace(
+        js.lights, verts=jnp.zeros((0, 3, 3), jnp.float32), normal=jnp.zeros((0, 3), jnp.float32),
+        area=jnp.zeros((0,), jnp.float32), count=jnp.asarray(0, jnp.int32), cluster_min=None,
+        cluster_max=None, cluster_woop=None, cluster_k=None,
+    )
+    js = dataclasses.replace(js, camera=js.camera.with_dims(w, h), lights=no_lights)
+    arrays, statics = jax_scene_arrays(js)
+    ts = scene_from_arrays(arrays, {**statics, "width": w, "height": h})
+    assert ts.lights.capacity == 0 and not ts.lights.has_clusters
+    hdr = pt.render(ts, spp=4, seed=2)
+    assert np.isfinite(hdr).all() and hdr.mean() > 0
+    want = np.asarray(jax_quantize(jnp.asarray(jax_render(js, spp=4, seed=2)))).astype(int)
+    _assert_fp_noise(want, quantize_u8(torch.from_numpy(hdr)).numpy().astype(int))
+
+
+def test_torch_chunk_padding_made_once(tmp_path, monkeypatch):
+    """Chunk tensors of 29 chunks (not a multiple of the 8-chunk group):
+    ``closest_hit_chunks`` NaN-pads them at the first call and hands the
+    kernels the same padded tensors at the second."""
+    path = make_sphere_field_gltf(str(tmp_path / "f" / "field.gltf"), n_spheres=3, subdiv=3)
+    scene = parse_gltf_scene(path, 1.0)
+    cw, cmin, cmax = scene.chunk_woop[:29], scene.chunk_aabb_min[:29], scene.chunk_aabb_max[:29]
+    seen = []  # the tensors themselves, so no address is reused
+    real_items, real_act = ci.run_items, ci.tile_chunk_activity
+    monkeypatch.setattr(ci, "run_items", lambda *a: seen.append(("woop", a[3])) or real_items(*a))
+    monkeypatch.setattr(ci, "tile_chunk_activity", lambda *a, **k: seen.extend(
+        [("min", a[1]), ("max", a[2])]) or real_act(*a, **k))
+    rs = np.random.default_rng(0)
+    o = torch.from_numpy(rs.uniform(-1, 1, (ci.RAY_TILE, 3)).astype(np.float32)) + scene.camera.position
+    d = torch.nn.functional.normalize(torch.from_numpy(rs.normal(size=(ci.RAY_TILE, 3)).astype(np.float32)), dim=1)
+    ptrs = []
+    for _ in range(2):
+        seen.clear()
+        hit = ci.closest_hit_chunks(o, d, cw, cmin, cmax, scene.woop_rows, 1e-4)
+        ptrs.append({(k, t.data_ptr()) for k, t in seen})
+        kept = list(seen)
+    assert hit.hit.any() and {k for k, _ in ptrs[0]} == {"woop", "min", "max"}
+    assert ptrs[0] == ptrs[1]
+    assert all(t.shape[0] == 32 for k, t in kept if k == "woop")

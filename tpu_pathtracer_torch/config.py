@@ -7,8 +7,10 @@ names, snake_cased, same defaults) live in frozen dataclasses.  Field names,
 defaults and the ``TPU_PT_*`` environment overrides are identical to the
 JAX package's, so a configuration means the same to both packages
 (``tests/test_torch_host.py`` holds them equal).  Knobs that only the TPU
-path reads (``max_cap``, ``light_items``, ``narrow_tile_chunks``,
-``packed_permute``) are kept for that equality and ignored by the port.
+path reads (``max_cap``, ``light_items``, ``packed_permute``) are kept for
+that equality and ignored by the port; ``narrow_tile_chunks`` is read, as in
+the JAX package, by ``models/pathtracer.scene_closest_hit`` (256-ray tiles
+past that many chunks).
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ class IntersectTuning:
     bins_cap: int = 12
     # Max prefetched worklist items per light-pdf window of the TPU kernel.
     light_items: int = 48_000
-    # Chunk count past which the TPU intersector uses 256-ray tiles.
+    # Chunk count past which the intersector uses 256-ray tiles (a TPU
+    # measurement; the H100's own switch point is unmeasured).
     narrow_tile_chunks: int = 4096
     # --- scene-build knobs (read at parse time by scene/gltf.py) ---
     # Triangles per intersector chunk.

@@ -142,25 +142,30 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def made_once(cache: dict, key, x: torch.Tensor, make):
+    """``make()``, a tensor derived from ``x``, computed once per source
+    tensor: ``cache[key]`` holds (weak reference to ``x``, ``x``'s version,
+    result); the entry goes when ``x`` does and is remade after an in-place
+    write to ``x``."""
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is x and hit[1] == x._version:
+        return hit[2]
+    out = make()
+    cache[key] = (weakref.ref(x, lambda _, key=key: cache.pop(key, None)), x._version, out)
+    return out
+
+
 # Woop blocks [C, 12, cw] -> their triangle-major copies [C, cw, 12], keyed
-# on the identity of the source tensor: id -> (weak reference, version, copy).
+# on the identity of the source tensor.
 _TRIANGLE_MAJOR: dict = {}
 
 
 def triangle_major(woop: torch.Tensor) -> torch.Tensor:
     """The triangle-major copy [C, cw, 12] of Woop blocks [C, 12, cw] (three
-    float4 per triangle) that B2, B3 and B6 stage from.  Made once per
-    tensor: a scene's ``chunk_woop`` / ``cluster_woop`` is copied at its
-    first launch and found again at every later one; the entry goes when the
-    tensor does, and is remade if the tensor was written in place."""
-    key = id(woop)
-    hit = _TRIANGLE_MAJOR.get(key)
-    if hit is not None and hit[0]() is woop and hit[1] == woop._version:
-        return hit[2]
-    copy = woop.transpose(1, 2).contiguous()
-    _TRIANGLE_MAJOR[key] = (weakref.ref(woop, lambda _, key=key: _TRIANGLE_MAJOR.pop(key, None)),
-                            woop._version, copy)
-    return copy
+    float4 per triangle) that B2, B3 and B6 stage from, made once per tensor
+    (``made_once``): a scene's ``chunk_woop`` / ``cluster_woop`` is copied at
+    its first launch and found again at every later one."""
+    return made_once(_TRIANGLE_MAJOR, id(woop), woop, lambda: woop.transpose(1, 2).contiguous())
 
 
 def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub):

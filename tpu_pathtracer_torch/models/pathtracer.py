@@ -19,6 +19,7 @@ remains.  Unknown configuration values raise ``ValueError``.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import numpy as np
@@ -221,14 +222,20 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     use_vndf = draws[1] <= vf
     vndf_dir = sampling.vndf_sample(alpha_r2, d, info["shading_normal"], draws[2], draws[3])
     cos_dir = sampling.cosine_sample(info["normal"], draws[5], draws[6])
+    # A light set with no rows (never made by the loader, which pads to 8)
+    # has nothing to pick or sum over: the mixture is the cosine lobe alone.
+    has_light_rows = lights.capacity > 0
     n_lights = lights.count
-    pick_light = (sampling.pick_uniform(draws[4], 2) == 1) & (n_lights > 0)
-    li = sampling.pick_uniform(draws[7], n_lights).long()
-    lv = lights.verts.reshape(-1, 9)[li]  # [R, 9]
-    light_dir = sampling.light_triangle_sample(
-        pos, lv[:, 0:3], lv[:, 3:6], lv[:, 6:9], draws[8], draws[9]
-    )
-    mix_dir = where3(pick_light, light_dir, cos_dir)
+    if has_light_rows:
+        pick_light = (sampling.pick_uniform(draws[4], 2) == 1) & (n_lights > 0)
+        li = sampling.pick_uniform(draws[7], n_lights).long()
+        lv = lights.verts.reshape(-1, 9)[li]  # [R, 9]
+        light_dir = sampling.light_triangle_sample(
+            pos, lv[:, 0:3], lv[:, 3:6], lv[:, 6:9], draws[8], draws[9]
+        )
+        mix_dir = where3(pick_light, light_dir, cos_dir)
+    else:
+        mix_dir = cos_dir
     new_dir = where3(use_vndf, vndf_dir, mix_dir)
 
     # pdf blend (src/raytracer.h:572-574)
@@ -237,7 +244,9 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     # The same choice as the JAX package makes on its chip, on every device:
     # the cluster worklists (kernel B3) past 512 light slots, the flat
     # contraction for up to 4 clusters, the dense reduce otherwise.
-    if lights.has_clusters and lights.capacity > 512:
+    if not has_light_rows:
+        p_light = None
+    elif lights.has_clusters and lights.capacity > 512:
         r = pos.shape[0]
         tile = RAY_TILE if r % RAY_TILE == 0 else 256
         p_light = light_pdf_sum_chunks(
@@ -252,7 +261,7 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
         p_light = light_pdf_sum(
             pos, new_dir, lights.verts, lights.normal, lights.area, n_lights, eps
         )
-    p_mix = (p_cos + p_light) / 2.0 if n_lights > 0 else p_cos
+    p_mix = (p_cos + p_light) / 2.0 if has_light_rows and n_lights > 0 else p_cos
     p = vf * p_vndf + (1.0 - vf) * p_mix
 
     f = bsdf.pbr_brdf(
@@ -479,19 +488,31 @@ def pick_chunk(config: RenderConfig, npix: int) -> int:
 
 
 def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig | None = None,
-           progress: bool = False, stats: dict | None = None) -> np.ndarray:
+           progress: bool = False, timer=None, stats: dict | None = None) -> np.ndarray:
     """Full-frame render -> host numpy [H, W, 3] float32 HDR radiance.
 
     Pixel chunks of ``pick_chunk`` lanes (or, with the persistent engine,
     the whole frame as one pool under ``config.frame_pool``) run
-    ``spp_per_pass`` samples per engine call.  A chunk whose device
-    execution fails is recomputed, up to ``config.failure_retries`` times:
-    the counter RNG makes a chunk a pure function of (scene, seed, range).
-    With the persistent engine ``stats["measured_rays"]`` receives the
-    number of rays traced (live lanes entering each bounce); the scan engine
-    leaves ``stats`` untouched, as in the JAX package."""
+    ``spp_per_pass`` samples per engine call; ``progress`` prints one tick
+    per (chunk, pass) tile.  ``timer`` (a ``utils.profiling.PhaseTimer``)
+    accumulates the JAX package's phases: "dispatch" (the engine calls; the
+    eager loop also waits there at its per-iteration host reads) and
+    "device_wait_readback" (the chunk's copy to the host).
+
+    A chunk whose execution raises is recomputed, up to
+    ``config.failure_retries`` times: the counter RNG makes a chunk a pure
+    function of (scene, seed, range), so the frame equals an undisturbed
+    one.  On a GPU a retry repairs what leaves the CUDA context usable: an
+    out-of-memory error, or a kernel launch that failed to start.  It cannot
+    repair a fault that kills the context (an illegal address, or a kernel
+    trapped by ``mbar_wait_or_trap``): every later CUDA call fails the same
+    way and the retries re-raise.  With the persistent engine
+    ``stats["measured_rays"]`` receives the number of rays traced (live
+    lanes entering each bounce) by the executions that succeeded; the scan
+    engine leaves ``stats`` untouched, as in the JAX package."""
     config = config or RenderConfig()
     check_config(config)
+    phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
     h, w = scene.camera.height, scene.camera.width
     npix = h * w
     if scene.ray_depth == 0:
@@ -502,32 +523,36 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     pass_spp = max(1, min(config.spp_per_pass, spp))
     frame_pool = config.frame_pool and config.compaction and npix > chunk
     pix_step = npix if frame_pool else chunk
-    n_tiles = -(-npix // pix_step) * -(-spp // pass_spp)
-    done_tiles = 0
+    n_passes = -(-spp // pass_spp)
+    n_tiles = -(-npix // pix_step) * n_passes
+    ticked = -1  # the last tile whose progress tick was printed
 
     def run(start: int, n: int):
-        nonlocal done_tiles
+        nonlocal ticked
         acc = None
         rays = 0
-        for s0 in range(0, spp, pass_spp):
-            if progress:
-                print(f"{done_tiles}/{n_tiles}     \r", end="", file=sys.stderr)
-                done_tiles += 1
+        for k, s0 in enumerate(range(0, spp, pass_spp)):
+            tile = start // pix_step * n_passes + k
+            if progress and tile > ticked:  # a retry does not tick again
+                print(f"{tile}/{n_tiles}     \r", end="", file=sys.stderr)
+                ticked = tile
             todo = min(pass_spp, spp - s0)
-            if not config.compaction:
-                rad = render_chunk(scene, start, seed, s0, chunk, todo, config)
-            else:
-                if frame_pool:
-                    pc, ar = n, n
+            with phase("dispatch"):
+                if not config.compaction:
+                    rad = render_chunk(scene, start, seed, s0, chunk, todo, config)
                 else:
-                    pc, ar = (None if n == chunk else n), None
-                rad, nb = render_chunk_persistent(
-                    scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar
-                )
-                rays += int(nb)
-            contrib = rad * float(todo)
-            acc = contrib if acc is None else acc + contrib
-        return acc[:n].cpu().numpy(), rays
+                    if frame_pool:
+                        pc, ar = n, n
+                    else:
+                        pc, ar = (None if n == chunk else n), None
+                    rad, nb = render_chunk_persistent(
+                        scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar
+                    )
+                    rays += int(nb)
+                contrib = rad * float(todo)
+                acc = contrib if acc is None else acc + contrib
+        with phase("device_wait_readback"):
+            return acc[:n].cpu().numpy(), rays
 
     out = np.zeros((npix, 3), dtype=np.float32)
     measured = 0
@@ -537,10 +562,10 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
             try:
                 host, rays = run(start, n)
                 break
-            except RuntimeError as err:  # a failed device execution
+            except Exception as err:  # a failed execution of this chunk
                 if attempt == config.failure_retries:
                     raise
-                print(f"chunk {start}: device execution failed ({err}), retrying "
+                print(f"chunk {start}: execution failed ({err}), retrying "
                       f"({attempt + 1}/{config.failure_retries})", file=sys.stderr)
         out[start:start + n] = host / spp
         measured += rays

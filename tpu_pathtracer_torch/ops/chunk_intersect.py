@@ -66,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import IntersectTuning
+from ..kernels import made_once
 from .intersect import Hit, winner_barycentrics
 
 RAY_TILE = 512  # rays per tile
@@ -89,6 +90,21 @@ def _nan_pad(x: torch.Tensor, rows: int) -> torch.Tensor:
         return x
     fill = torch.full((pad,) + tuple(x.shape[1:]), float("nan"), dtype=x.dtype, device=x.device)
     return torch.cat([x, fill])
+
+
+# NaN-padded copies of a scene's chunk tensors, keyed on the identity of the
+# source tensor and the padded row count.
+_PADDED: dict = {}
+
+
+def _nan_pad_once(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``_nan_pad(x, rows).contiguous()``, made once per source tensor
+    (``kernels.made_once``): a scene's chunk tensors are padded at the first
+    call and found again at every later one, so ``kernels.triangle_major``
+    finds its copy too."""
+    if rows <= x.shape[0]:
+        return x.contiguous()
+    return made_once(_PADDED, (id(x), rows), x, lambda: _nan_pad(x, rows).contiguous())
 
 
 def _wrap_i32(words: torch.Tensor) -> torch.Tensor:
@@ -480,8 +496,8 @@ def ray_group_bools(rays, chunk_min, chunk_max, min_dst: float, group: int = GRO
     ``ACT_COLS`` as the JAX package pads them (callers keep the first
     ceil(C / group) rows)."""
     cpad = -(-chunk_min.shape[0] // ACT_COLS) * ACT_COLS
-    cmin = _nan_pad(chunk_min, cpad).contiguous()
-    cmax = _nan_pad(chunk_max, cpad).contiguous()
+    cmin = _nan_pad_once(chunk_min, cpad)
+    cmax = _nan_pad_once(chunk_max, cpad)
     if rays.is_cuda:
         from .. import kernels
 
@@ -704,9 +720,9 @@ def closest_hit_chunks(
 
     c = chunk_woop.shape[0]
     cg = -(-c // group)
-    chunk_woop = _nan_pad(chunk_woop, cg * group).contiguous()
-    chunk_min = _nan_pad(chunk_min, cg * group).contiguous()
-    chunk_max = _nan_pad(chunk_max, cg * group).contiguous()
+    chunk_woop = _nan_pad_once(chunk_woop, cg * group)
+    chunk_min = _nan_pad_once(chunk_min, cg * group)
+    chunk_max = _nan_pad_once(chunk_max, cg * group)
     rays = pack_rays(origin, direction)
     if mode == "bins":  # no tile activity prepass
         t_best, tri = _closest_hit_bins(
@@ -931,8 +947,8 @@ def nearest_box_ids(
     if r % ray_tile:
         raise ValueError(f"ray count {r} is not a multiple of the ray tile {ray_tile}")
     gpad = -(-box_min.shape[0] // ACT_COLS) * ACT_COLS
-    bmin = _nan_pad(box_min, gpad).contiguous()
-    bmax = _nan_pad(box_max, gpad).contiguous()
+    bmin = _nan_pad_once(box_min, gpad)
+    bmax = _nan_pad_once(box_max, gpad)
     rays = pack_rays(origin, direction)
     if rays.is_cuda:
         from .. import kernels

@@ -28,23 +28,23 @@ JITTER_DEPTH = 0x7FFFFFFF
 _Int = Union[int, torch.Tensor]
 
 
-def _u32(x: _Int, device=None) -> torch.Tensor:
-    """Any int or integer tensor -> int64 tensor holding its u32 value."""
+def _u32(x: _Int) -> _Int:
+    """An int or integer tensor -> its u32 value (an int, or an int64
+    tensor)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _M32
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=device)
+    return int(x) & _M32
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(x: _Int, r: int) -> _Int:
     return ((x << r) | (x >> (32 - r))) & _M32
 
 
-def tf2x32(
-    k0: _Int, k1: _Int, c0: _Int, c1: _Int, device=None
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def tf2x32(k0: _Int, k1: _Int, c0: _Int, c1: _Int) -> Tuple[_Int, _Int]:
     """Threefry-2x32, 20 rounds (Random123 KAT-validated).  Inputs broadcast;
-    returns two int64 tensors holding u32 words."""
-    k0, k1, x0, x1 = (_u32(v, device) for v in (k0, k1, c0, c1))
+    returns two u32 words: ints when every input is an int (host work, no
+    device copy), else int64 tensors."""
+    k0, k1, x0, x1 = (_u32(v) for v in (k0, k1, c0, c1))
     x0 = (x0 + k0) & _M32
     x1 = (x1 + k1) & _M32
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
@@ -70,6 +70,32 @@ def key_words(seed: int) -> Tuple[int, int]:
     return 0, int(seed) & _M32
 
 
+def fold_in(k0: int, k1: int, n: int) -> Tuple[int, int]:
+    """The key words of ``jax.random.fold_in(key, n)`` for a key of words
+    (k0, k1): one threefry block of the counter (0, n)."""
+    return tf2x32(k0, k1, 0, n)
+
+
+def lane_uniforms_key(
+    k0: _Int,
+    k1: _Int,
+    sample: _Int,  # scalar or [R] global sample index
+    depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
+    pixel: torch.Tensor,  # [R] linear pixel ids
+    n_draws: int,
+) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
+    """``lane_uniforms`` under the key words (k0, k1) instead of a seed: the
+    JAX package's ``lane_uniforms(key, ...)`` for any key, folded ones
+    included."""
+    dev = pixel.device
+    a0, a1 = tf2x32(k0, k1, sample, depth)
+    # All ceil(n/2) counter blocks in one broadcast: [B, 1] block ids x [R].
+    blocks = torch.arange((n_draws + 1) // 2, dtype=torch.int64, device=dev)
+    x0, x1 = tf2x32(a0, a1, pixel[None, :], blocks[:, None])
+    draws = torch.stack([_bits_to_unit(x0), _bits_to_unit(x1)], dim=1)
+    return draws.reshape(-1, pixel.shape[0])[:n_draws]
+
+
 def lane_uniforms(
     seed: int,
     sample: _Int,  # scalar or [R] global sample index
@@ -79,14 +105,14 @@ def lane_uniforms(
 ) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
     """U[0,1) draws keyed per (pixel, sample, depth) lane.  Scalar or per-lane
     (sample, depth) give the same stream, as in the JAX package."""
-    dev = pixel.device
-    k0, k1 = key_words(seed)
-    a0, a1 = tf2x32(k0, k1, sample, depth, device=dev)
-    # All ceil(n/2) counter blocks in one broadcast: [B, 1] block ids x [R].
-    blocks = torch.arange((n_draws + 1) // 2, dtype=torch.int64, device=dev)
-    x0, x1 = tf2x32(a0, a1, pixel[None, :], blocks[:, None], device=dev)
-    draws = torch.stack([_bits_to_unit(x0), _bits_to_unit(x1)], dim=1)
-    return draws.reshape(-1, pixel.shape[0])[:n_draws]
+    return lane_uniforms_key(*key_words(seed), sample, depth, pixel, n_draws)
+
+
+def per_pixel_uniforms(k0: int, k1: int, pixel_ids: torch.Tensor, n_draws: int) -> torch.Tensor:
+    """[n_draws, R] draws keyed per pixel under the key words (k0, k1): the
+    JAX package's ``models.pathtracer.per_pixel_uniforms``, the stream of
+    the homebrew renderers' folded keys."""
+    return lane_uniforms_key(k0, k1, 0, 0, pixel_ids, n_draws)
 
 
 # ---------------------------------------------------------------------------
@@ -151,22 +177,20 @@ def sobol_owen_2d(seed: int, sample: _Int, pixel: torch.Tensor) -> torch.Tensor:
     """[2, R] Owen-scrambled 2D Sobol point ``sample`` (scalar or [R]) of
     each pixel's sequence; the per-pixel scramble seeds are one threefry
     block of (pixel, 0) under the 'SOBL' tag."""
-    dev = pixel.device
     k0, k1 = key_words(seed)
     p = _u32(pixel)
-    s1, s2 = tf2x32(k0 ^ _SOBL, k1, p, 0, device=dev)
-    return _sobol_point(_u32(sample, dev) + p * 0, s1, s2)
+    s1, s2 = tf2x32(k0 ^ _SOBL, k1, p, 0)
+    return _sobol_point(_u32(sample) + p * 0, s1, s2)
 
 
 def sobol_owen_pair(seed: int, sample: _Int, depth: _Int, pixel: torch.Tensor,
                     tag: int) -> torch.Tensor:
     """[2, R] point ``sample`` of the per-(pixel, depth, tag) Owen-scrambled
     (0,2)-sequence: the bounce-draw form of ``sobol_owen_2d``."""
-    dev = pixel.device
     k0, k1 = key_words(seed)
     p = _u32(pixel)
-    s1, s2 = tf2x32(k0 ^ tag, k1, p, _u32(depth, dev) ^ _SOBL, device=dev)
-    return _sobol_point(_u32(sample, dev) + p * 0, s1, s2)
+    s1, s2 = tf2x32(k0 ^ tag, k1, p, _u32(depth) ^ _SOBL)
+    return _sobol_point(_u32(sample) + p * 0, s1, s2)
 
 
 def jitter_uniforms(

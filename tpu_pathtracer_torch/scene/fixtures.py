@@ -3,8 +3,8 @@
 The port's own copies of the generators of
 ``tpu_pathtracer/utils/testscenes.py`` that it uses (``make_atrium_gltf``,
 ``make_cornell_gltf``, ``make_env_hdr``, ``make_env_image``,
-``make_sphere_field_gltf``, with the glTF writer and mesh helpers they
-need), writing byte-identical files (``tests/test_torch_host.py``), plus
+``make_sphere_field_gltf``, ``make_textured_cornell_gltf``, with the glTF
+writer and mesh helpers they need), writing byte-identical files (``tests/test_torch_host.py``), plus
 ``make_lit_banner_atrium_gltf``, the atrium made a many-light scene.  Each
 writes a self-contained glTF (JSON + .bin, plus PNG textures where asked).
 """
@@ -20,8 +20,9 @@ import numpy as np
 
 
 class GltfBuilder:
-    """Minimal glTF 2.0 writer: materials, meshes (one primitive each, one
-    node each), textures by image file and one perspective camera."""
+    """Minimal glTF 2.0 writer: materials, meshes (one primitive each),
+    nodes (instances and groups), textures by image file and one
+    perspective camera."""
 
     def __init__(self) -> None:
         self.materials: List[dict] = []
@@ -33,6 +34,7 @@ class GltfBuilder:
         self.cameras: List[dict] = []
         self.images: List[str] = []
         self.textures: List[dict] = []
+        self._children: set = set()  # nodes parented by add_group
 
     def add_texture(self, image_uri: str) -> int:
         """Register an image file (relative to the .gltf) as a texture."""
@@ -49,6 +51,7 @@ class GltfBuilder:
         emissive_strength: Optional[float] = None,
         base_color_texture: Optional[int] = None,
         metallic_roughness_texture: Optional[int] = None,
+        emissive_texture: Optional[int] = None,
         normal_texture: Optional[int] = None,
     ) -> int:
         pbr: dict = {
@@ -63,11 +66,15 @@ class GltfBuilder:
         mat: dict = {"pbrMetallicRoughness": pbr}
         if emissive is not None:
             mat["emissiveFactor"] = list(emissive)
+        if emissive_texture is not None:
+            mat["emissiveTexture"] = {"index": emissive_texture}
         if normal_texture is not None:
             mat["normalTexture"] = {"index": normal_texture}
         if emissive_strength is not None:
             mat["extensions"] = {
-                "KHR_materials_emissive_strength": {"emissiveStrength": emissive_strength}
+                "KHR_materials_emissive_strength": {
+                    "emissiveStrength": emissive_strength
+                }
             }
         self.materials.append(mat)
         return len(self.materials) - 1
@@ -77,7 +84,9 @@ class GltfBuilder:
         self.bin.extend(data)
         while len(self.bin) % 4:
             self.bin.append(0)
-        self.buffer_views.append({"buffer": 0, "byteOffset": off, "byteLength": len(data)})
+        self.buffer_views.append(
+            {"buffer": 0, "byteOffset": off, "byteLength": len(data)}
+        )
         return len(self.buffer_views) - 1
 
     def _accessor(self, view: int, count: int, ctype: int, atype: str) -> int:
@@ -93,6 +102,11 @@ class GltfBuilder:
         material: int,
         normals: Optional[np.ndarray] = None,
         uvs: Optional[np.ndarray] = None,
+        node_transform: Optional[dict] = None,
+        index_dtype: Optional[str] = None,  # force "u8" | "u16" | "u32"
+        #   (all three are legal glTF componentTypes regardless of vertex
+        #   count; the reference switches on them at src/scene.h:163-180)
+        mode: Optional[int] = None,  # primitive mode (4 tris, 5 strip)
     ) -> int:
         positions = np.asarray(positions, dtype="<f4")
         pos_acc = self._accessor(
@@ -111,13 +125,49 @@ class GltfBuilder:
             )
         if indices is not None:
             idx = np.asarray(indices)
-            dt, ctype = ("<u2", 5123) if idx.max(initial=0) < 65536 else ("<u4", 5125)
+            if index_dtype is None:
+                index_dtype = "u2" if idx.max(initial=0) < 65536 else "u4"
+            dt = {"u8": "<u1", "u16": "<u2", "u32": "<u4",
+                  "u1": "<u1", "u2": "<u2", "u4": "<u4"}[index_dtype]
+            ctype = {"<u1": 5121, "<u2": 5123, "<u4": 5125}[dt]
             prim["indices"] = self._accessor(
-                self._push_view(idx.astype(dt).tobytes()), idx.shape[0], ctype, "SCALAR"
+                self._push_view(idx.astype(dt).tobytes()), idx.shape[0],
+                ctype, "SCALAR",
             )
+        if mode is not None:
+            prim["mode"] = mode
         self.meshes.append({"primitives": [prim]})
-        self.nodes.append({"mesh": len(self.meshes) - 1})
+        return self.add_node(len(self.meshes) - 1, node_transform)
+
+    def add_node(
+        self, mesh: int, node_transform: Optional[dict] = None
+    ) -> int:
+        """Instance an existing mesh under a (possibly different) transform —
+        the node-reuse shape real exporters emit (handle_node walks every
+        node referencing the mesh, src/scene.h:256-258)."""
+        node = {"mesh": mesh}
+        if node_transform:
+            node.update(node_transform)
+        self.nodes.append(node)
         return len(self.nodes) - 1
+
+    def add_group(
+        self, children: List[int], node_transform: Optional[dict] = None
+    ) -> int:
+        """Parent the given nodes under a new (possibly transformed) group
+        node; grouped nodes leave the scene's root list, so their transforms
+        accumulate through the parent exactly as the reference's recursive
+        handle_node composes them (src/scene.h:224-230, 461-465)."""
+        node: dict = {"children": list(children)}
+        if node_transform:
+            node.update(node_transform)
+        self.nodes.append(node)
+        self._children.update(children)
+        return len(self.nodes) - 1
+
+    def mesh_of(self, node: int) -> int:
+        """Mesh index referenced by a node created with add_mesh."""
+        return self.nodes[node]["mesh"]
 
     def add_camera(self, position, yfov: float, node_transform: Optional[dict] = None) -> int:
         self.cameras.append({"perspective": {"yfov": yfov}, "type": "perspective"})
@@ -133,7 +183,8 @@ class GltfBuilder:
         root = {
             "asset": {"version": "2.0"},
             "scene": 0,
-            "scenes": [{"nodes": list(range(len(self.nodes)))}],
+            "scenes": [{"nodes": [i for i in range(len(self.nodes))
+                                  if i not in self._children]}],
             "nodes": self.nodes,
             "meshes": self.meshes,
             "materials": self.materials,
@@ -249,6 +300,58 @@ def make_env_hdr(path: str) -> str:
     rgb[sun] = (8.0, 7.0, 5.0)  # clamps to white through the u8 bottleneck
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     return write_hdr(path, rgb)
+
+
+def make_textured_cornell_gltf(path: str, light_strength: float = 20.0) -> str:
+    """Cornell variant with a checkerboard baseColor texture on the floor and
+    a gradient metallic-roughness texture on the back wall — exercises the
+    texture atlas, bilinear fetch, per-texel gamma decode and the glTF B=metal
+    / G=rough channel convention (src/geometry.h:623-626)."""
+    from PIL import Image
+
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    checker = np.zeros((8, 8, 3), dtype=np.uint8)
+    checker[(np.indices((8, 8)).sum(axis=0) % 2) == 0] = (230, 200, 120)
+    checker[(np.indices((8, 8)).sum(axis=0) % 2) == 1] = (40, 60, 160)
+    Image.fromarray(checker).save(os.path.join(d, "checker.png"))
+    mr = np.zeros((8, 8, 3), dtype=np.uint8)
+    mr[..., 1] = np.linspace(30, 220, 8, dtype=np.uint8)[None, :]  # roughness G
+    mr[..., 2] = np.linspace(220, 30, 8, dtype=np.uint8)[:, None]  # metallic B
+    Image.fromarray(mr).save(os.path.join(d, "mr.png"))
+
+    b = GltfBuilder()
+    checker_tex = b.add_texture("checker.png")
+    mr_tex = b.add_texture("mr.png")
+    white = b.add_material((0.73, 0.73, 0.73, 1))
+    floor_mat = b.add_material((1, 1, 1, 1), base_color_texture=checker_tex)
+    back_mat = b.add_material(
+        (0.7, 0.7, 0.7, 1),
+        metallic=1.0,
+        roughness=1.0,
+        metallic_roughness_texture=mr_tex,
+    )
+    light = b.add_material(
+        (0, 0, 0, 1), emissive=(1, 1, 1), emissive_strength=light_strength
+    )
+
+    uv_quad = np.array([[0, 0], [2, 0], [2, 2], [0, 2]], dtype=np.float32)
+    pos, idx = quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1))
+    b.add_mesh(pos, idx, material=floor_mat, uvs=uv_quad)
+    pos, idx = quad((-1, 2, -1), (-1, 2, 1), (1, 2, 1), (1, 2, -1))
+    b.add_mesh(pos, idx, material=white)
+    pos, idx = quad((-1, 0, -1), (-1, 2, -1), (1, 2, -1), (1, 0, -1))
+    b.add_mesh(pos, idx, material=back_mat, uvs=uv_quad / 2)
+    pos, idx = quad((-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1))
+    b.add_mesh(pos, idx, material=white)
+    pos, idx = quad((1, 0, -1), (1, 2, -1), (1, 2, 1), (1, 0, 1))
+    b.add_mesh(pos, idx, material=white)
+    pos, idx = quad(
+        (-0.4, 1.998, -0.4), (0.4, 1.998, -0.4), (0.4, 1.998, 0.4), (-0.4, 1.998, 0.4)
+    )
+    b.add_mesh(pos, idx, material=light)
+    b.add_camera((0, 1.0, 3.8), yfov=0.62)
+    return b.write(path)
 
 
 def make_sphere_field_gltf(

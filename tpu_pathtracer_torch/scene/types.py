@@ -1,5 +1,5 @@
 """Scene representation as frozen dataclasses of tensors (port of
-``tpu_pathtracer/scene/types.py:48-272``).
+``tpu_pathtracer/scene/types.py:48-333``).
 
 Same arrays, same layouts, same padding conventions as the JAX package's
 pytrees, so one set of numpy arrays feeds both (``bridge.py``).  The port
@@ -150,6 +150,70 @@ class TriangleScene:
         return self.verts.device
 
     def to(self, device) -> "TriangleScene":
+        return _to(self, device)
+
+
+# --- Homebrew (scene-NNN.txt) world -------------------------------------
+
+PRIM_PLANE = 0
+PRIM_ELLIPSOID = 1
+PRIM_BOX = 2
+PRIM_TRIANGLE = 3
+
+MAT_DIFFUSE = 0
+MAT_METALLIC = 1
+MAT_DIELECTRIC = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimitiveScene:
+    """Analytic primitives of the homebrew format in local space: a
+    primitive with rotation quaternion q and position p is intersected by
+    taking the ray into its local frame (conjugate rotation)."""
+
+    kind: torch.Tensor  # [P] int32 in {PRIM_*}
+    param: torch.Tensor  # [P, 9]: plane normal / radii / half-sizes / 3 verts
+    position: torch.Tensor  # [P, 3]
+    rotation: torch.Tensor  # [P, 4] quaternion (x, y, z, w)
+    color: torch.Tensor  # [P, 3]
+    emission: torch.Tensor  # [P, 3]
+    mat_kind: torch.Tensor  # [P] int32 in {MAT_*}
+    ior: torch.Tensor  # [P]
+    valid: torch.Tensor  # [P] bool
+
+    # Whitted-mode lights
+    ambient: torch.Tensor  # [3]
+    dir_light_dir: torch.Tensor  # [Ld, 3] (normalized at parse)
+    dir_light_intensity: torch.Tensor  # [Ld, 3]
+    dir_light_valid: torch.Tensor  # [Ld] bool
+    point_light_pos: torch.Tensor  # [Lp, 3]
+    point_light_intensity: torch.Tensor  # [Lp, 3]
+    point_light_atten: torch.Tensor  # [Lp, 3] (c0, c1, c2)
+    point_light_valid: torch.Tensor  # [Lp] bool
+
+    bg_color: torch.Tensor  # [3]
+
+    camera: Camera = None
+    ray_depth: int = 1
+    samples: Optional[int] = None  # None => Whitted mode
+    # True when the scene defines any light (ambient/directional/point).
+    # Lightless non-MC scenes are stage-1 homework: flat primitive colors.
+    lit: bool = True
+
+    @property
+    def capacity(self) -> int:
+        return self.kind.shape[0]
+
+    @property
+    def monte_carlo(self) -> bool:
+        """SAMPLES present => path-traced (practice5+); else Whitted (hw2/3)."""
+        return self.samples is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.kind.device
+
+    def to(self, device) -> "PrimitiveScene":
         return _to(self, device)
 
 
