@@ -49,6 +49,24 @@ just before and read just after:
                    the main render's) and ``render_multihost`` with a
                    checkpoint;
 
+and, with the persistent engine's loop as one CUDA graph (the default on
+the card) against the per-iteration eager loop:
+
+  rng              the threefry kernel against its twin, bit for bit, in
+                   the bounce, camera-jitter and key-words forms on 65,536
+                   lanes;
+  graph            the atrium at 512x512 @ 16 spp eager, graph, graph,
+                   eager (frames identical, measured rays equal), the
+                   graph's iterations per host read K tried at 4, 8, 16 and
+                   32 in turns, the device's busy share of both loops from
+                   ``torch.profiler``, the same identity at 4 spp under
+                   "twopass", on the lit-banner atrium and on the env field,
+                   and two ``Renderer`` frames through the cached graph;
+  tile256          the atrium with ``TPU_PT_NARROW_TILE_CHUNKS`` lowered
+                   below its chunk count: B1 and B2 at 256-ray tiles against
+                   their twins, the cascade against the brute force, and a
+                   16-spp graphed render at 512-ray tiles against 256;
+
 checks the Cornell goldens (plain, environment map PNG and HDR, light
 triangle, Sobol bounce draws, Sobol jitter) at 64x64 @ 64 spp and, in phase
 goldens_more, the textured Cornell at 64x64 and the plain one at 96x64; and
@@ -67,6 +85,7 @@ final line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -106,6 +125,19 @@ CLOCK_HZ = 1.98e9
 WOOP_OPS = 55
 PDF_OPS = 65
 SLAB_OPS = 30
+# The threefry kernel (csrc/rng_kernels.cu) in lane operations.  A counter
+# block under a lane's stage key: 20 rounds of add, rotate (one funnel
+# shift) and xor, five key injections of two adds and x1's first add, 71
+# 32-bit integer operations; the key, its parity word, each injection's key
+# word plus round constant and x0's first add are the same in every block
+# of a lane.  The stage-key block: the rounds, the injections and both
+# first adds, 72 (the key and its injection words are the same on every
+# lane).  A draw: a shift and an or (integer) and a float32 subtract.
+# 32-bit integer operations run on 64 of an SM's 128 lanes.
+RNG_BLOCK_OPS = 71
+RNG_STAGE_OPS = 72
+RNG_DRAW_INT_OPS = 2
+INT32_LANES = 64
 
 
 def emit(phase, **kw):
@@ -149,11 +181,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
-def bound(pairs, ops_per_pair, n_bytes):
+def bound(pairs, ops_per_pair, n_bytes, lanes=128, int32_ops=0):
     """(bound_ms, bound_by) for ``pairs`` pair tests of ``ops_per_pair`` lane
-    operations that move ``n_bytes``."""
-    lane_ops_per_s = torch.cuda.get_device_properties(0).multi_processor_count * 128 * CLOCK_HZ
-    t_ops = pairs * ops_per_pair / lane_ops_per_s * 1e3
+    operations that move ``n_bytes``, on ``lanes`` lanes of each SM, and
+    ``int32_ops`` 32-bit integer operations on ``INT32_LANES`` lanes of each
+    SM (another pipe: the larger time bounds)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_ops = max(pairs * ops_per_pair / (sms * lanes * CLOCK_HZ),
+                int32_ops / (sms * INT32_LANES * CLOCK_HZ)) * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -193,10 +228,11 @@ def phase_build():
 def counters():
     """Kernel name -> the wrapper that counts its launches."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
+    from tpu_pathtracer_torch.ops import rng
 
     return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
             "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
-            "b7": ci.ray_group_bools}
+            "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key}
 
 
 def reset_launches():
@@ -1315,6 +1351,329 @@ def phase_sharded(path, tmp, main_row):
                              f"{main_row['measured_rays']}, {launches}")
 
 
+def phase_rng():
+    """The threefry kernel against its plain twin on 65,536 lanes, bit for
+    bit, in the three forms the port launches: the bounce draws (10 draws,
+    per-lane sample, depth and pixel, the seed a device scalar), the camera
+    jitter (2 draws at JITTER_DEPTH) and the key-words form of the homebrew
+    renderers (folded key words, scalar sample and depth).  Each is timed
+    beside its twin.  Returns {form: (ms, plain ms, int32 operations,
+    float32 operations, bytes, max abs error)}."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import rng
+
+    n = N_RAYS
+    g = torch.Generator().manual_seed(0)
+    pixel = torch.randint(0, W * H, (n,), generator=g, dtype=torch.int32).to(DEV)
+    sample = torch.randint(0, SPP, (n,), generator=g, dtype=torch.int32).to(DEV)
+    depth = torch.randint(0, 8, (n,), generator=g, dtype=torch.int32).to(DEV)
+    seed = torch.tensor(2**32 + 12345, dtype=torch.int64, device=DEV)
+    forms = {
+        "bounce": (*rng.key_words(seed), sample, depth, pixel, 10),
+        "jitter": (*rng.key_words(seed), sample, rng.JITTER_DEPTH, pixel, 2),
+        "key_words": (*rng.fold_in(*rng.key_words(7), 3), 0, 0, pixel, 8),
+    }
+    out = {}
+    for name, args in forms.items():
+        k = kernels.uniforms(*args)
+        k2 = kernels.uniforms(*args)
+        p = rng.lane_uniforms_key_plain(*args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(k.view(torch.int32), p.view(torch.int32)))
+        det = bool(torch.equal(k, k2))
+        ms = queued_ms(lambda: kernels.uniforms(*args), 50)
+        plain_ms = sync_ms(lambda: rng.lane_uniforms_key_plain(*args), 10)
+        per_lane = any(isinstance(v, torch.Tensor) and v.dim() for v in args[2:4])
+        int_ops = (n * ((args[5] + 1) // 2) * RNG_BLOCK_OPS + n * args[5] * RNG_DRAW_INT_OPS
+                   + (n if per_lane else 1) * RNG_STAGE_OPS)
+        f32_ops = n * args[5]
+        n_bytes = 4 * n * args[5] + sum(4 * n for v in args[2:5]
+                                        if isinstance(v, torch.Tensor) and v.dim())
+        emit("rng", form=name, lanes=n, draws=args[5], bit_equal_to_twin=equal,
+             deterministic=det, max_abs_err=float((k - p).abs().max()), ms=ms,
+             plain_ms=plain_ms, int32_ops=int_ops, f32_ops=f32_ops, bytes=n_bytes)
+        if not (equal and det):
+            raise AssertionError(f"the threefry kernel differs from its twin ({name})")
+        out[name] = (ms, plain_ms, int_ops, f32_ops, n_bytes, float((k - p).abs().max()))
+    return out
+
+
+def render_loop(scene, spp, config, loop, seed=0):
+    """One ``render`` with the persistent engine's ``loop``, the launch
+    counters, the iteration counter and the graph counters set to 0 just
+    before and read just after."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+
+    reset_launches()
+    pt.persistent_accum.iterations = 0
+    r0, c0 = CapturedBlock.replays, CapturedBlock.captures
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = pt.render(scene, spp=spp, seed=seed, config=config, stats=stats, eager=loop == "eager")
+    secs = time.perf_counter() - t0
+    return dict(img=img, rays=stats.get("measured_rays"), loop=stats.get("loop"), seconds=secs,
+                iterations=pt.persistent_accum.iterations, launches=read_launches(),
+                replays=CapturedBlock.replays - r0, captures=CapturedBlock.captures - c0)
+
+
+def device_busy_ms(scene, spp, config, loop):
+    """(device busy ms, iterations run, wall seconds, kernels seen) of one
+    render under ``torch.profiler``: the sum of its kernel and memory
+    operation times (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.profile_render import _device_times
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        row = render_loop(scene, spp, config, loop)
+    dev = _device_times(prof)
+    return sum(ms for ms, _ in dev.values()), row["iterations"], row["seconds"], len(dev)
+
+
+def check_loops(label, scene, spp, config, needs, order=("eager", "graph")):
+    """``render`` of ``scene`` with each loop of ``order`` (repeats allowed):
+    every graph frame identical to the eager one, measured rays equal, the
+    kernels in ``needs`` launched by both loops, the graph replayed.
+    Returns {loop: [rows]}."""
+    import numpy as np
+
+    rows = {}
+    for loop in order:
+        rows.setdefault(loop, []).append(render_loop(scene, spp, config, loop))
+    eager = rows["eager"][0]
+    for loop, runs in rows.items():
+        for row in runs:
+            same = bool(np.array_equal(row["img"], eager["img"]))
+            emit("graph", scene=label, spp=spp, loop=loop, taken=row["loop"],
+                 seconds_render=row["seconds"], iterations=row["iterations"],
+                 ms_per_iteration=row["seconds"] * 1e3 / max(row["iterations"], 1),
+                 graph_replays=row["replays"], graph_captures=row["captures"],
+                 measured_rays=row["rays"], identical_to_eager=same,
+                 rays_equal_to_eager=row["rays"] == eager["rays"],
+                 **{f"launches_{k}": v for k, v in row["launches"].items()},
+                 hdr_finite=bool(np.isfinite(row["img"]).all()))
+            missing = [k for k in needs if row["launches"][k] == 0]
+            if not same or row["rays"] != eager["rays"] or missing or row["loop"] != loop \
+                    or (loop == "graph" and row["replays"] + row["captures"] == 0) \
+                    or not np.isfinite(row["img"]).all():
+                raise AssertionError(f"graph: {label} {loop} differs from eager or did not "
+                                     f"launch {missing}")
+    return rows
+
+
+# The graph's iterations per host read tried in turns.
+K_TURNS = (4, 8, 16, 32, 32, 16, 8, 4)
+
+
+def phase_graph(path, lit_path, field, env):
+    """The persistent engine's loop as one CUDA graph against the eager loop.
+
+    1. The atrium at 512x512 @ 16 spp: eager, graph, graph, eager; frames
+       identical, measured rays equal, B1 / B2 / threefry launched, the
+       graph replayed (the first graph render captures it).
+    2. K, the iterations per replay, at 4, 8, 16, 32, 32, 16, 8, 4 (a 1-spp
+       render first captures each K's graph): ms per useful iteration (the
+       eager loop's count) and the tail waste (iterations run past it); the
+       fastest K is printed.
+    3. The device's busy ms per iteration of each loop at 4 spp under
+       ``torch.profiler`` against the timed renders' ms per iteration.
+    4. Eager against graph at 4 spp: "twopass" (B6), the lit-banner atrium
+       (B3), the env field.
+    5. Two ``Renderer`` frames at 4 spp through the cached graph (one
+       capture for both), each identical to its eager frame."""
+    import numpy as np
+
+    from tpu_pathtracer_torch.config import IntersectTuning, RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+    from tpu_pathtracer_torch.renderer import Renderer
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    config = RenderConfig()
+    scene = load_atrium(path)
+    rows = check_loops("atrium", scene, SPP, config, ("b1", "b2", "rng"),
+                       order=("eager", "graph", "graph", "eager"))
+    useful = rows["eager"][0]["iterations"]
+    eager_ms = [r["seconds"] * 1e3 / useful for r in rows["eager"]]
+    graph_ms = [r["seconds"] * 1e3 / useful for r in rows["graph"]]
+
+    default_k = pt.LOOP_ITERATIONS
+    per_k = {}
+    try:
+        for k in K_TURNS:
+            pt.LOOP_ITERATIONS = k
+            render_loop(scene, 1, config, "graph")  # captures this K's graph
+            row = render_loop(scene, SPP, config, "graph")
+            same = bool(np.array_equal(row["img"], rows["eager"][0]["img"]))
+            per_k.setdefault(k, []).append(row["seconds"] * 1e3 / useful)
+            emit("graph_k", k=k, seconds_render=row["seconds"], iterations=row["iterations"],
+                 useful_iterations=useful, tail_iterations=row["iterations"] - useful,
+                 ms_per_useful_iteration=row["seconds"] * 1e3 / useful,
+                 graph_replays=row["replays"], identical_to_eager=same)
+            if not same:
+                raise AssertionError(f"graph with K={k} differs from eager")
+    finally:
+        pt.LOOP_ITERATIONS = default_k
+        pt.clear_compiled_loops()
+    best_k = min(per_k, key=lambda k: sum(per_k[k]) / len(per_k[k]))
+
+    busy = {}
+    for loop in ("eager", "graph"):
+        render_loop(scene, 1, config, loop)  # the graph of this K again
+        busy[loop] = device_busy_ms(scene, 4, config, loop)
+    # If the profiler saw no kernel of the replays, the graph's busy time is
+    # not measured (null), never taken from the eager loop.
+    method = "torch.profiler" if busy["graph"][3] else \
+        "torch.profiler (no graph kernels seen: graph not measured)"
+    busy_eager_it = busy["eager"][0] / busy["eager"][1]
+    busy_graph_it = busy["graph"][0] / busy["graph"][1] if busy["graph"][3] else None
+    timed_eager_it = rows["eager"][1]["seconds"] * 1e3 / rows["eager"][1]["iterations"]
+    timed_graph_it = rows["graph"][1]["seconds"] * 1e3 / rows["graph"][1]["iterations"]
+    share_graph = busy_graph_it / timed_graph_it if busy_graph_it is not None else None
+    emit("graph_summary", scene=f"atrium {W}x{H}@{SPP}spp", k=default_k, best_k=best_k,
+         k_ms_per_useful_iteration={str(k): v for k, v in per_k.items()},
+         eager_ms_per_iteration=eager_ms, graph_ms_per_iteration=graph_ms,
+         useful_iterations=useful, graph_iterations=rows["graph"][1]["iterations"],
+         busy_method=method, busy_ms_per_iteration={"eager": busy_eager_it, "graph": busy_graph_it},
+         busy_share={"eager": busy_eager_it / timed_eager_it, "graph": share_graph},
+         profiled={loop: {"busy_ms": b[0], "iterations": b[1], "seconds": b[2], "kernels": b[3]}
+                   for loop, b in busy.items()},
+         nvidia_smi=card_line())
+
+    check_loops("atrium twopass", scene, 4, RenderConfig(tuning=IntersectTuning(mode="twopass")),
+                ("b1", "b6", "rng"))
+    del scene
+    pt.clear_compiled_loops()
+    check_loops("lit-banner atrium", load_atrium(lit_path), 4, config, ("b1", "b2", "b3", "rng"))
+    env_config = RenderConfig(use_env_map=True, env_map_path=env, add_light_triangle=True)
+    fscene = parse_gltf_scene(field, W / H, env_config)
+    fscene = dataclasses.replace(fscene, camera=fscene.camera.with_dims(W, H)).to(DEV)
+    check_loops("env field", fscene, 4, env_config, ("b1", "b2", "rng"))
+    del fscene
+    pt.clear_compiled_loops()
+
+    r = Renderer(path, aspect_ratio=W / H, device=torch.device(DEV))
+    eye, fwd = r.camera.position.cpu().numpy(), r.camera.forward.cpu().numpy()
+    c0 = CapturedBlock.captures
+    for shift in (0.0, 0.6):
+        r.look_at(eye=eye + np.array([shift, 0.0, 0.0]), target=eye + 10 * fwd)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = r.render(W, H, 4, seed=0)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        cam_scene = dataclasses.replace(r.scene, camera=r.scene.camera.with_dims(W, H))
+        want = pt.render(cam_scene, spp=4, seed=0, config=r.config, eager=True)
+        same = bool(np.array_equal(got, want))
+        emit("graph", scene="Renderer atrium look_at", shift=shift, spp=4, seconds_render=secs,
+             identical_to_eager=same, graph_captures_so_far=CapturedBlock.captures - c0,
+             **{f"launches_{k}": v for k, v in launches.items()})
+        if not same or launches["b1"] == 0 or launches["b2"] == 0:
+            raise AssertionError("a Renderer frame through the graph differs from eager")
+    if CapturedBlock.captures - c0 != 1:
+        raise AssertionError("the second Renderer frame did not reuse the cached graph")
+    del r
+    pt.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms, "best_k": best_k}
+
+
+def phase_tile256(scene, brutes, rays_sets):
+    """256-ray tiles, the shape scenes above ``narrow_tile_chunks`` (4,096
+    chunks) take: on the atrium's rays, B1 (4 sub-tiles of 64 rays:
+    unbounded, gated, gated and t-bounded) and B2 (the near-1 and residual
+    worklists) against their twins, and the cascade at ``ray_tile=256``
+    against the brute force; then, with ``TPU_PT_NARROW_TILE_CHUNKS``
+    lowered below the atrium's chunk count, 16-spp graphed renders at
+    512-ray tiles against 256 in turns (512, 256, 256, 512)."""
+    import numpy as np
+
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    tile, n_sub = 256, 4
+    group = ci.GROUP
+    c = scene.chunk_woop.shape[0]
+    cg = -(-c // group)
+    cw = ci._nan_pad(scene.chunk_woop, cg * group).contiguous()
+    cmin = ci._nan_pad(scene.chunk_aabb_min, cg * group).contiguous()
+    cmax = ci._nan_pad(scene.chunk_aabb_max, cg * group).contiguous()
+    for name, (o, d) in rays_sets.items():
+        rays = ci.pack_rays(o, d)
+        tb = ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min,
+                                   scene.chunk_aabb_max, scene.woop_rows, EPS, ray_tile=tile).t
+        cbits = ci.super_block_bits(rays, cmin, cmax, EPS, tile)
+        for mode, args in {
+            "unbounded": (rays, cmin, cmax, None, None, EPS, tile, n_sub, False),
+            "gated": (rays, cmin, cmax, None, cbits, EPS, tile, n_sub, False),
+            "gated_bounded_sub": (rays, cmin, cmax, tb, cbits, EPS, tile, n_sub, True),
+        }.items():
+            check_b1(name, f"tile256_{mode}", args)
+        m8, ent, _ = ci.tile_chunk_activity(rays, cmin, cmax, None, cbits, EPS, tile, n_sub)
+        ga, ge = ci._group_stats(m8 != 0, ent, group)
+        packed = ci._pack_group_masks(m8, group)
+        r = rays.shape[0]
+        t0 = torch.full((r,), math.inf, device=DEV)
+        i0 = torch.zeros((r,), dtype=torch.int32, device=DEV)
+        for wl_name, cap in (("near1", max(4, cg // 9) * 2 // 4), ("residual", cg)):
+            idx, counts, _ = ci._worklist(ga, ge, cap)
+            masks = torch.take_along_dim(packed, idx[:, :, None].long(), dim=1)
+            args = (rays, t0, i0, cw, idx.contiguous(), counts.contiguous(), masks.contiguous(),
+                    EPS, group, n_sub)
+            tk, ik = kernels.items(*args)
+            tp, ip = ci.run_items_plain(*args)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+            compare_hits("tile256_b2", name, tk, ik, tp, ip, worklist=wl_name, ray_tile=tile,
+                         n_sub=n_sub, items=int(counts.sum()), bit_equal_to_twin=equal)
+            if not equal:
+                raise AssertionError(f"B2 at 256-ray tiles differs from its twin ({name}, {wl_name})")
+        got = ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min,
+                                    scene.chunk_aabb_max, scene.woop_rows, EPS, ray_tile=tile)
+        row = check_brute("tile256_cascade", name, scene, o, d, got, brutes[name])
+        emit("tile256_cascade", rays=name, ray_tile=tile, hits=int(got.hit.sum()), **row)
+
+    config = RenderConfig()
+    rows = {}
+    old = os.environ.get("TPU_PT_NARROW_TILE_CHUNKS")
+    try:
+        for tile_rays in (512, 256, 256, 512):
+            if tile_rays == 256:
+                os.environ["TPU_PT_NARROW_TILE_CHUNKS"] = str(c - 1)
+            elif old is None:
+                os.environ.pop("TPU_PT_NARROW_TILE_CHUNKS", None)
+            else:
+                os.environ["TPU_PT_NARROW_TILE_CHUNKS"] = old
+            render_loop(scene, 1, config, "graph")  # captures this tile's graph
+            row = render_loop(scene, SPP, config, "graph")
+            rows.setdefault(tile_rays, []).append(row)
+            emit("tile256_render", ray_tile=tile_rays, chunks=c,
+                 narrow_tile_chunks=config.tuning.resolve().narrow_tile_chunks,
+                 seconds_render=row["seconds"], iterations=row["iterations"],
+                 measured_rays=row["rays"], **{f"launches_{k}": v for k, v in row["launches"].items()},
+                 hdr_finite=bool(np.isfinite(row["img"]).all()), nvidia_smi=card_line())
+    finally:
+        if old is None:
+            os.environ.pop("TPU_PT_NARROW_TILE_CHUNKS", None)
+        else:
+            os.environ["TPU_PT_NARROW_TILE_CHUNKS"] = old
+        pt.clear_compiled_loops()
+    from tpu_pathtracer_torch.utils.image import quantize_u8
+
+    u8 = {t: quantize_u8(torch.from_numpy(rs[0]["img"])).numpy() for t, rs in rows.items()}
+    share, dmean, ok = fp_noise(u8[512], u8[256])
+    emit("tile256", seconds_512=[r["seconds"] for r in rows[512]],
+         seconds_256=[r["seconds"] for r in rows[256]], u8_off_by_more_than_1=share,
+         abs_mean_diff=dmean, repeat_identical={t: bool(np.array_equal(rs[0]["img"], rs[1]["img"]))
+                                                for t, rs in rows.items()})
+    if not ok or any(r["launches"]["b1"] == 0 or r["launches"]["b2"] == 0 for r in rows[256]):
+        raise AssertionError("the 256-ray-tile render disagrees with the 512-ray-tile one")
+
+
 # Why no kernel has a ``library_ms``: no single PyTorch call computes the
 # same function (each is a slab or Woop test fused with a minimum, an any
 # or a masked sum, over a worklist that depends on the data).
@@ -1365,6 +1724,7 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 def main():
     phase_device()
     phase_build()
+    rng_forms = phase_rng()
     from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
@@ -1382,6 +1742,7 @@ def main():
         b6_err, b6_args = phase_b6(scene, rays_sets)
         b7_err, b7_args = phase_b7(scene, rays_sets)
         phase_modes(scene, rays_sets, brutes)
+        phase_tile256(scene, brutes, rays_sets)
 
         # Kernel vs twin time at the main paths' shapes: the initial gated
         # activity pass, the residual item pass, the first-entered-group
@@ -1440,10 +1801,10 @@ def main():
 
         phase_golden(tmp)
         phase_goldens_env_lt(tmp)
-        main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2"),
+        main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2", "rng"),
                                 gen_seconds=gen_seconds)
         lit_row = phase_render("lights_main", "lit-banner atrium 512x512@16spp", lit_path, tmp,
-                               ("b1", "b2", "b3"), gen_seconds=lit_gen)
+                               ("b1", "b2", "b3", "rng"), gen_seconds=lit_gen)
         t0 = time.perf_counter()
         field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
                                                 n_spheres=64, subdiv=3, textured=textured)
@@ -1453,6 +1814,7 @@ def main():
                      field, tmp, ("b1", "b2"), gen_seconds=field_gen,
                      config=RenderConfig(use_env_map=True, env_map_path=env,
                                          add_light_triangle=True))
+        phase_graph(path, lit_path, field, env)
         sort_rows = phase_sort_keys(path, main_row)
         mode_rows = phase_modes_render(path, tmp, main_row)
         phase_engine(path, tmp)
@@ -1498,6 +1860,18 @@ def main():
             "share": bound_ms / times[k][0], "library_ms": None,
             "library_note": LIBRARY_NOTE[k],
             "work": {"pairs": pairs, "ops_per_pair": ops, "bytes": n_bytes}})
+    ms, plain_ms, int_ops, f32_ops, n_bytes, rng_err = rng_forms["bounce"]
+    bound_ms, bound_by = bound(f32_ops, 1, n_bytes, int32_ops=int_ops)
+    rows.append({
+        "name": "threefry draws (not a TPU kernel)", "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/rng_kernels.cu",
+        "replaces": "tpu_pathtracer/ops/rng.py:87",
+        "replaces_note": "lane_uniforms, fused by XLA on the TPU: no Pallas kernel",
+        "launches": main_row["launches_rng"], "max_abs_err": rng_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share": bound_ms / ms, "library_ms": None,
+        "library_note": "none: no PyTorch call computes threefry-2x32 counter draws",
+        "work": {"int32_ops": int_ops, "f32_ops": f32_ops, "bytes": n_bytes}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """``add_rows``, the persistent engine's accumulation, adds repeated rows in
-the same order on every run.  The CUDA case has the marker ``cuda`` and
-skips on a machine without a card; on the card run
-``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+the same order on every run; on the card, the threefry kernel equals its
+twin and the persistent loop's CUDA graph equals the eager loop.  The CUDA
+cases have the marker ``cuda`` and skip on a machine without a card; on the
+card run ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import pytest
 import torch
@@ -31,3 +32,104 @@ def test_torch_add_rows_repeats_exactly(device):
         assert torch.equal(runs[0], serial)
     else:
         torch.testing.assert_close(runs[0], serial, rtol=1e-5, atol=0)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+def test_torch_threefry_kernel_equals_twin():
+    """The threefry kernel (``csrc/rng_kernels.cu``) against its plain twin,
+    bit for bit: the bounce draws with the seed as a device scalar, the
+    camera jitter, the key-words form with scalar (sample, depth), and a
+    device-scalar sample past 2^32."""
+    _needs_card()
+    from tpu_pathtracer_torch.ops import rng
+
+    g = torch.Generator().manual_seed(3)
+    pix = torch.randint(0, 2**31 - 1, (70_001,), generator=g, dtype=torch.int32).cuda()
+    smp = torch.randint(0, 70_000, (70_001,), generator=g, dtype=torch.int32).cuda()
+    dep = torch.randint(0, 9, (70_001,), generator=g, dtype=torch.int32).cuda()
+    seed = torch.tensor(2**32 + 7, device="cuda")
+    for args in ((*rng.key_words(seed), smp, dep, pix, 10),
+                 (*rng.key_words(seed), smp, rng.JITTER_DEPTH, pix, 2),
+                 (*rng.fold_in(0, 7, 3), 5, 0, pix, 7),
+                 (0, 99, torch.tensor(2**33 + 3, device="cuda"), 4, pix, 9)):
+        launches = rng.lane_uniforms_key.launches
+        got = rng.lane_uniforms_key(*args)
+        assert rng.lane_uniforms_key.launches == launches + 1
+        want = rng.lane_uniforms_key_plain(*args)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_torch_graph_loop_equals_eager(tmp_path):
+    """The persistent engine's loop as a CUDA graph against the eager loop on
+    the atrium (sort on, kernels B1 / B2): frames identical and measured
+    rays equal, twice through the cached graph, with a moved camera."""
+    _needs_card()
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    path = fixtures.make_atrium_gltf(str(tmp_path / "a.gltf"), detail=1, textured=False)
+    scene = parse_gltf_scene(path, 1.0)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(96, 96)).to("cuda")
+    moved = dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, position=scene.camera.position + torch.tensor([0.4, 0.0, 0.0], device="cuda")))
+    captures = CapturedBlock.captures
+    for s in (scene, moved):
+        want_stats, got_stats = {}, {}
+        want = pt.render(s, spp=2, seed=1, stats=want_stats, eager=True)
+        got = pt.render(s, spp=2, seed=1, stats=got_stats)
+        assert got_stats["loop"] == "graph"
+        assert np.array_equal(got, want)
+        assert got_stats["measured_rays"] == want_stats["measured_rays"]
+    assert CapturedBlock.captures == captures + 1
+    pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+def test_torch_graph_loop_alternates_chunk_widths(tmp_path):
+    """Two atrium scenes of different chunk widths under mode "twopass" (so
+    B6, whose shared memory grows with the chunk width, runs in the graph),
+    in turns through their cached graphs: the wider scene's graph, replayed
+    after the narrower scene ran, still launches and equals the eager loop."""
+    _needs_card()
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.config import IntersectTuning, RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    path = fixtures.make_atrium_gltf(str(tmp_path / "a.gltf"), detail=1, textured=False)
+    scenes = []
+    for chunk_tris in (128, 64):
+        config = RenderConfig(tuning=IntersectTuning(mode="twopass", chunk_tris=chunk_tris))
+        scene = parse_gltf_scene(path, 1.0, config)
+        scene = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 64)).to("cuda")
+        scenes.append((scene, config))
+    pt.clear_compiled_loops()
+    captures = CapturedBlock.captures
+    for scene, config in scenes + scenes:
+        want_stats, got_stats = {}, {}
+        want = pt.render(scene, spp=1, seed=2, config=config, stats=want_stats, eager=True)
+        slots = ci.run_slots.launches
+        got = pt.render(scene, spp=1, seed=2, config=config, stats=got_stats)
+        assert got_stats["loop"] == "graph" and ci.run_slots.launches > slots
+        assert np.array_equal(got, want)
+        assert got_stats["measured_rays"] == want_stats["measured_rays"]
+    assert CapturedBlock.captures == captures + 2
+    pt.clear_compiled_loops()

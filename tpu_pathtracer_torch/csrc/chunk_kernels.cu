@@ -82,6 +82,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "persistent_grid.cuh"
 #include "slab.cuh"
 #include "stage.cuh"
 
@@ -368,14 +369,10 @@ extern "C" int tpt_items(
   if (n_items > 0) {
     // A persistent grid: as many 64-thread blocks as the SMs hold at once.
     const size_t smem = kStageAlign + (size_t)kStages * cw * 3 * sizeof(float4);
-    int device = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    int grid = 0;
+    if ((err = persistent_grid((const void*)items_kernel, kItemThreads, smem, &grid)) !=
+        cudaSuccess)
       return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, items_kernel, kItemThreads,
-                                                             smem)) != cudaSuccess)
-      return (int)err;
-    const int grid = sms * (per_sm > 0 ? per_sm : 1);
     items_kernel<<<grid, kItemThreads, smem, st>>>(
         (const float*)rays, (const float*)tmin0, (const float4*)woop_t, (const int32_t*)idx,
         (const int32_t*)counts, (const int32_t*)masks, (const int32_t*)offsets, n_items, cap,

@@ -89,6 +89,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "persistent_grid.cuh"
 #include "slab.cuh"
 #include "stage.cuh"
 
@@ -442,17 +443,10 @@ extern "C" int tpt_slots(
     // is past the 48 KB a block gets without asking.
     const int threads = (kSlotWarps + 1) * 32;
     const size_t smem = kSlotHead + (size_t)kSlotStages * group * cw * 3 * sizeof(float4);
-    int device = 0, sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)) != cudaSuccess)
+    int grid = 0;
+    if ((err = persistent_grid((const void*)slots_kernel, threads, smem, &grid)) !=
+        cudaSuccess)
       return (int)err;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slots_kernel, threads,
-                                                             smem)) != cudaSuccess)
-      return (int)err;
-    const int grid = sms * (per_sm > 0 ? per_sm : 1);
     slots_kernel<<<grid, threads, smem, st>>>(
         (const float*)rays, (const float*)tmin0, (const float4*)woop_t, (const int32_t*)idx,
         (const int32_t*)masks, (const int32_t*)offsets, n_slots, cap, n_words, group, n_sub,

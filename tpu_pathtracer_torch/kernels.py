@@ -11,7 +11,10 @@ machines without CUDA.
 The functions below check device, dtype, shape and contiguity, allocate the
 outputs, launch, and raise when the launch reports a CUDA error.  The
 dispatching wrappers with their plain twins and launch counters live in
-``ops/chunk_intersect.py``.
+``ops/chunk_intersect.py`` (B1-B7) and ``ops/rng.py`` (the threefry draws).
+No launch makes a runtime call that a CUDA graph capture refuses: B2's and
+B6's persistent grids (and B6's shared-memory attribute) are set at their
+first launch and kept.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 # Library name -> its C entry points (ctypes argument types).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 LIBRARIES = {
     "chunk_kernels": {
         "tpt_activity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
@@ -50,6 +53,10 @@ LIBRARIES = {
         "tpt_dense": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4,
         "tpt_slots": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,  # woop_t, idx, masks, offsets
         "tpt_ray_groups": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
+    },
+    "rng_kernels": {
+        # key words, then sample, depth, pixel: (array, device scalar, constant) each
+        "tpt_uniforms": [_P, _P, _U, _U] + [_P, _P, _U] * 3 + [_I, _I, _P, _P],
     },
 }
 
@@ -395,4 +402,48 @@ def ray_groups(rays, cmin, cmax, min_dst, group):
             _ptr(out), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "ray_groups")
+    return out
+
+
+def _stream_word(x, name: str, device, lanes: int):
+    """One input of the threefry stream as the kernel takes it: (int32 [R]
+    array or None, int64 device scalar or None, u32 constant).  A Python int
+    is a constant; a 0-d tensor is read on the device at run time, so a
+    captured launch follows its value; an [R] tensor is a per-lane array."""
+    if not isinstance(x, torch.Tensor):
+        return None, None, int(x) & 0xFFFFFFFF
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, want {device}")
+    if x.dim() == 0:
+        return None, x if x.dtype == torch.int64 else x.to(torch.int64), 0
+    if lanes is None or tuple(x.shape) != (lanes,) or x.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: want an int, a 0-d tensor or int [{lanes}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return (x if x.dtype == torch.int32 else x.to(torch.int32)).contiguous(), None, 0
+
+
+def uniforms(k0, k1, sample, depth, pixel, n_draws: int):
+    """Launch the threefry draws (contract: ``ops.rng.lane_uniforms_key_plain``):
+    [n_draws, R] float32 for the key words (k0, k1) and per-lane (sample,
+    depth, pixel).  Each input is a Python int, a 0-d integer tensor on the
+    card (read by the kernel) or, for sample, depth and pixel, an [R] integer
+    tensor (its low 32 bits)."""
+    dev = pixel.device
+    if pixel.dim() != 1:
+        raise ValueError(f"pixel: want [R], got {tuple(pixel.shape)}")
+    r = pixel.shape[0]
+    words = [_stream_word(k0, "k0", dev, None), _stream_word(k1, "k1", dev, None)]
+    words += [_stream_word(v, n, dev, r) for n, v in (("sample", sample), ("depth", depth),
+                                                        ("pixel", pixel))]
+    out = torch.empty((n_draws, r), dtype=torch.float32, device=dev)
+    (_, k0_s, k0_c), (_, k1_s, k1_c) = words[:2]
+    lanes = []
+    for array, scalar, constant in words[2:]:
+        lanes += [_ptr(array), _ptr(scalar), constant]
+    with torch.cuda.device(dev):
+        rc = library("rng_kernels").tpt_uniforms(
+            _ptr(k0_s), _ptr(k1_s), k0_c, k1_c, *lanes, r, n_draws, _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "uniforms")
     return out

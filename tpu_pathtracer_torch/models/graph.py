@@ -1,0 +1,94 @@
+"""A loop body captured once in a CUDA graph and replayed.
+
+The port's counterpart of a jitted ``lax.while_loop``: ``CapturedBlock``
+runs ``iterations`` iterations of a body over a dict of carry tensors as one
+device program, with one host read ("is work left?") per block.  On CUDA the
+first block runs eagerly on a side stream (it builds the kernel libraries
+and fills every cache the body reads, so none is made inside the graph's
+memory pool), then the same block is captured; every later block is a
+replay.  On any other device every block runs as it is, with no graph.
+The carries and everything the body reads stay at fixed addresses: the body
+reads its inputs from the tensors of ``carries`` and writes the new carries
+back into them at the end of the block.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+
+def counted_wrappers() -> tuple:
+    """Every kernel wrapper with a ``launches`` counter: a replay adds the
+    launches the capture recorded, so the counters stay the launches the
+    card ran."""
+    from ..ops import chunk_intersect as ci
+    from ..ops import rng
+
+    return (ci.tile_chunk_activity, ci.run_items, ci.run_light_pdf, ci.nearest_box_ids,
+            ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key)
+
+
+class CapturedBlock:
+    """``iterations`` runs of ``step`` (carries -> new carries) as one CUDA
+    graph (on CUDA); ``more(carries)`` is the [] bool the host reads after a
+    block."""
+
+    captures = 0  # graphs captured, and
+    replays = 0  # replays of every block: a run shows the graph ran
+
+    def __init__(self, step: Callable[[dict], dict], more: Callable[[dict], torch.Tensor],
+                 carries: Dict[str, torch.Tensor], iterations: int):
+        self.step, self.more, self.iterations = step, more, iterations
+        self.carries = carries
+        self.flag = torch.ones((), dtype=torch.bool, device=next(iter(carries.values())).device)
+        self.graph = None
+        self.per_replay = ()
+
+    def load(self, carries: Dict[str, torch.Tensor]) -> None:
+        """Start from ``carries`` (copied into the captured tensors)."""
+        for name, value in carries.items():
+            self.carries[name].copy_(value)
+
+    def _block(self) -> None:
+        c = dict(self.carries)
+        for _ in range(self.iterations):
+            c = self.step(c)
+        for name, value in self.carries.items():
+            value.copy_(c[name])
+        self.flag.copy_(self.more(c))
+
+    def _capture(self) -> None:
+        dev = self.flag.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._block()  # the first block, run for real
+        main.wait_stream(side)
+        wrappers = counted_wrappers()
+        before = [fn.launches for fn in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._block()
+        # The capture ran nothing: its launches count once per replay.
+        self.per_replay = tuple((fn, fn.launches - n) for fn, n in zip(wrappers, before)
+                                if fn.launches != n)
+        for fn, n in self.per_replay:
+            fn.launches -= n
+        self.graph = graph
+        CapturedBlock.captures += 1
+
+    def run(self) -> bool:
+        """One block of iterations; returns whether work is left."""
+        if self.flag.device.type != "cuda":
+            self._block()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            CapturedBlock.replays += 1
+            for fn, n in self.per_replay:
+                fn.launches += n
+        return bool(self.flag)

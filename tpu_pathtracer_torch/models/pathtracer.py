@@ -13,13 +13,20 @@ sample, depth) stream, so both engines are the JAX package's estimator
 draw for draw; only per-pixel summation order (and the intersector's fp
 rounding) differ.
 
-The loops run eagerly: one host read per iteration decides whether work
-remains.  Unknown configuration values raise ``ValueError``.
+The persistent engine's loop runs as one CUDA graph on a CUDA device (the
+port of the JAX package's jitted ``render_chunk_persistent``): a block of
+``LOOP_ITERATIONS`` iterations is captured once per static configuration
+and replayed with one host read per block (``persistent_accum``,
+``models/graph.py``); the CPU runs the same blocks without a graph.  The
+scan engine runs eagerly, one host read per bounce.  Unknown configuration
+values raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import sys
 
 import numpy as np
@@ -47,8 +54,10 @@ from ..ops.rng import (
     lane_uniforms,
     sobol_owen_pair,
 )
-from ..ops.vecmath import cross, dot, frame_apply, length2, normalize, where3
+from ..ops.vecmath import constant, cross, dot, frame_apply, length2, normalize, where3
 from ..scene.types import Camera, TriangleScene
+from ..utils.profiling import stage
+from .graph import CapturedBlock
 
 # Uniform draws per ray per bounce:
 # 0 alpha coin | 1 vndf coin | 2,3 vndf | 4 mixture pick | 5,6 cosine
@@ -74,7 +83,7 @@ def check_config(config: RenderConfig) -> None:
     check_tuning(config.tuning.resolve())
 
 
-def bounce_draws(seed: int, sample, depth, pixel: torch.Tensor,
+def bounce_draws(seed, sample, depth, pixel: torch.Tensor,
                  config: RenderConfig) -> torch.Tensor:
     """[_DRAWS, R] per-bounce estimator draws.  ``lowdisc="sobol"`` replaces
     the VNDF (2, 3) and light-point (8, 9) pairs by per-(pixel, depth)
@@ -156,7 +165,8 @@ def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) ->
     if slots:
         uv = _interp_flat(row, 18, 2, hit.beta, hit.gamma)
         fetched = texture.sample_many(
-            scene.atlas, tex_ids[:, slots], uv, tuple(gammas[k] for k in slots)
+            scene.atlas, tex_ids[:, constant(slots, tex_ids, torch.int64)], uv,
+            tuple(gammas[k] for k in slots),
         )
     if used[3]:
         tangent = normalize(_interp_flat(row, 24, 3, hit.beta, hit.gamma))
@@ -196,7 +206,8 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     eps = config.eps
     vf = config.vndf_factor
     lights = scene.lights
-    hit = scene_closest_hit(scene, o, d, eps, config.tuning)
+    with stage("intersector"):
+        hit = scene_closest_hit(scene, o, d, eps, config.tuning)
 
     if scene.has_env and config.use_textures:
         env = texture.env_radiance(scene.atlas, scene.env_tex, scene.bg_color, d)
@@ -208,7 +219,8 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     radiance = radiance + torch.where(miss[:, None], throughput * env, zero3)
 
     live = alive & hit.hit
-    info = hit_info(scene, d, hit, config)
+    with stage("hit_info"):
+        info = hit_info(scene, d, hit, config)
     pos = o + hit.t[:, None] * d
 
     # Alpha Russian roulette (src/raytracer.h:558-561).
@@ -244,23 +256,24 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     # The same choice as the JAX package makes on its chip, on every device:
     # the cluster worklists (kernel B3) past 512 light slots, the flat
     # contraction for up to 4 clusters, the dense reduce otherwise.
-    if not has_light_rows:
-        p_light = None
-    elif lights.has_clusters and lights.capacity > 512:
-        r = pos.shape[0]
-        tile = RAY_TILE if r % RAY_TILE == 0 else 256
-        p_light = light_pdf_sum_chunks(
-            pos, new_dir, lights.cluster_woop, lights.cluster_k, lights.cluster_min,
-            lights.cluster_max, n_lights, eps, ray_tile=tile,
-        )
-    elif lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
-        p_light = light_pdf_sum_flat(
-            pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps
-        )
-    else:
-        p_light = light_pdf_sum(
-            pos, new_dir, lights.verts, lights.normal, lights.area, n_lights, eps
-        )
+    with stage("light_pdf"):
+        if not has_light_rows:
+            p_light = None
+        elif lights.has_clusters and lights.capacity > 512:
+            r = pos.shape[0]
+            tile = RAY_TILE if r % RAY_TILE == 0 else 256
+            p_light = light_pdf_sum_chunks(
+                pos, new_dir, lights.cluster_woop, lights.cluster_k, lights.cluster_min,
+                lights.cluster_max, n_lights, eps, ray_tile=tile,
+            )
+        elif lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
+            p_light = light_pdf_sum_flat(
+                pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps
+            )
+        else:
+            p_light = light_pdf_sum(
+                pos, new_dir, lights.verts, lights.normal, lights.area, n_lights, eps
+            )
     p_mix = (p_cos + p_light) / 2.0 if has_light_rows and n_lights > 0 else p_cos
     p = vf * p_vndf + (1.0 - vf) * p_mix
 
@@ -335,110 +348,311 @@ def add_rows(accum: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> t
     return accum.index_add_(0, rows, values)
 
 
+# Iterations of the persistent loop between two host reads of "is work
+# left?" in the "graph" loop.  Chosen on one H100 80GB HBM3
+# at 700 W (chip_smoke.py phase graph; PERF.md): 4, 8, 16 and 32 took 5.9,
+# 6.0, 6.3 and 7.4 ms per useful iteration of the atrium at 512x512 @ 16
+# spp, the tail past a pool's end costing more than the host reads saved.
+LOOP_ITERATIONS = 4
+# Compiled loops kept at once (each holds its scene's tensors and its pool).
+GRAPH_CACHE = 4
+
+
+def engine_loop(config: RenderConfig, device, eager: bool = False) -> str:
+    """The loop the persistent engine runs (see ``persistent_accum``):
+    "eager" when asked for, else "graph", with one rule: intersector mode
+    "bins" runs "eager" on CUDA, because it reads the host inside the
+    intersector (a ``nonzero`` and its overflow flag), which a CUDA graph
+    cannot hold."""
+    if eager:
+        return "eager"
+    if torch.device(device).type == "cuda" and config.tuning.resolve().mode == "bins":
+        return "eager"
+    return "graph"
+
+
+def _traced_scalars(device, chunk_start, seed, sample_start, w_total, pool_pix) -> torch.Tensor:
+    """[5] int64 on ``device``: the first pixel, the seed's key word, the
+    first sample, the pool size and the pool's pixels.  Each may be a Python
+    int or a 0-d tensor (the JAX package's traced arguments)."""
+    vals = (chunk_start, seed, sample_start, w_total, pool_pix)
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        vals = (chunk_start, int(seed) & 0xFFFFFFFF, sample_start, w_total, pool_pix)
+        return torch.tensor([int(v) for v in vals], dtype=torch.int64, device=device)
+    out = torch.stack([
+        v.reshape(()).to(device=device, dtype=torch.int64) if isinstance(v, torch.Tensor)
+        else torch.tensor(int(v), dtype=torch.int64, device=device) for v in vals])
+    out[1] &= 0xFFFFFFFF
+    return out
+
+
+class _PersistentLoop:
+    """The persistent engine over one lane block: its carries and the body
+    of its loop.  The traced inputs are read from ``scalars`` ([5] int64 on
+    the device, ``_traced_scalars``) and the camera from ``camera``'s
+    tensors, so the body captured once in a CUDA graph serves every chunk,
+    pass, seed and camera of its static configuration (scene, config, lane
+    count, accumulator rows)."""
+
+    def __init__(self, scene, config, n_rays: int, rows: int, camera: Camera,
+                 scalars: torch.Tensor):
+        dev = scene.device
+        self.scene, self.config, self.camera, self.scalars = scene, config, camera, scalars
+        self.n_rays, self.rows = n_rays, rows
+        (self.chunk_start, self.seed, self.sample_start, self.w_total,
+         self.pool_pix) = scalars.unbind()
+        self.sort_rays = scene.capacity > 1024 and n_rays >= 2048
+        self.key_fn = _make_sort_key(scene, config, n_rays) if self.sort_rays else None
+        self.far = torch.full((3,), 1e30, device=dev)
+        self.iota = torch.arange(n_rays, dtype=torch.int64, device=dev)
+        # Rows past ``rows``: one drop row per lane for the lanes that finish
+        # nothing, so the only repeated rows are pixels finishing two samples
+        # at once (``add_rows`` adds one row's repeats one after another).
+        self.drop = rows + self.iota
+        self.accum = torch.zeros((rows + n_rays, 3), device=dev)
+
+    def spawn(self, work_ids, valid):
+        """Primary rays of work items ``work_ids`` (where ``valid``)."""
+        with stage("spawn"):
+            w = torch.where(valid, work_ids, torch.zeros_like(work_ids))
+            slot = (w % self.pool_pix).to(torch.int32)
+            s = (w // self.pool_pix).to(torch.int32)
+            pids = self.chunk_start + slot
+            o, d = gen_rays(self.camera, pids, jitter_uniforms(
+                self.seed, self.sample_start + s, pids, self.config.jitter))
+        return o, d, slot, s
+
+    def start(self) -> dict:
+        """The carries before the first iteration; zeroes the accumulator."""
+        dev = self.iota.device
+        valid0 = self.iota < self.w_total
+        o, d, slot, sample = self.spawn(self.iota, valid0)
+        alive = valid0 & torch.isfinite(o[:, 0])
+        self.accum.zero_()
+        return dict(
+            o=o, d=d, throughput=torch.ones_like(o), radiance=torch.zeros_like(o),
+            alive=alive, active=alive.clone(), slot=slot, sample=sample,
+            depth=torch.zeros(self.n_rays, dtype=torch.int32, device=dev),
+            hint=torch.full((self.n_rays,), -1, dtype=torch.int32, device=dev),
+            next_work=torch.minimum(self.w_total, torch.full_like(self.w_total, self.n_rays)),
+            n_bounce=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+
+    def more(self, c: dict) -> torch.Tensor:
+        """[] bool: some lane is alive or work is left."""
+        return c["alive"].any() | (c["next_work"] < self.w_total)
+
+    def iteration(self, c: dict) -> dict:
+        """One iteration: sort, bounce, retire finished samples into the
+        accumulator, regenerate freed lanes.  Returns the new carries."""
+        scene, config = self.scene, self.config
+        with stage("loop"):
+            o, d, throughput, radiance = c["o"], c["d"], c["throughput"], c["radiance"]
+            alive, active, slot, sample = c["alive"], c["active"], c["slot"], c["sample"]
+            depth, hint, next_work = c["depth"], c["hint"], c["next_work"]
+            if self.sort_rays:
+                with stage("sort"):
+                    perm = torch.argsort(self.key_fn(o, d, alive, hint), stable=True)
+                    o, d = o[perm], d[perm]
+                    throughput, radiance = throughput[perm], radiance[perm]
+                    alive, active, slot = alive[perm], active[perm], slot[perm]
+                    sample, depth, hint = sample[perm], depth[perm], hint[perm]
+            n_bounce = c["n_bounce"] + alive.sum()
+            with stage("draws"):
+                draws = bounce_draws(self.seed, self.sample_start + sample, depth,
+                                     self.chunk_start + slot, config)
+            with stage("shading"):
+                o, d, throughput, radiance, alive2, hint = bounce_step(
+                    scene, config, o, d, throughput, radiance, alive, draws
+                )
+            alive2 = alive2 & alive
+            depth = depth + 1
+
+            # Termination: killed this bounce, or the depth budget exhausted
+            # (which adds throughput * 0, the reference's NaN algebra).
+            exhausted = alive2 & (depth >= scene.ray_depth)
+            radiance = radiance + torch.where(
+                exhausted[:, None], throughput * 0.0, torch.zeros_like(radiance)
+            )
+            done = active & (~alive2 | exhausted)
+            alive2 = alive2 & ~exhausted
+            contrib = torch.where(done[:, None], sanitize_nans(radiance), torch.zeros_like(radiance))
+            with stage("add_rows"):
+                add_rows(self.accum, torch.where(done, slot.long(), self.drop), contrib)
+
+            # Regenerate: freed lanes pull the next work items.
+            with stage("regenerate"):
+                free = done | ~active
+                work_ids = next_work + torch.cumsum(free.to(torch.int64), 0) - 1
+                take = free & (work_ids < self.w_total)
+                no, nd, nslot, nsample = self.spawn(work_ids, take)
+                o = where3(take, no, o)
+                d = where3(take, nd, d)
+                throughput = torch.where(take[:, None], torch.ones_like(throughput), throughput)
+                radiance = torch.where(take[:, None], torch.zeros_like(radiance), radiance)
+                slot = torch.where(take, nslot, slot)
+                sample = torch.where(take, nsample, sample)
+                depth = torch.where(take, torch.zeros_like(depth), depth)
+                hint = torch.where(take, torch.full_like(hint, -1), hint)
+                alive = alive2 | take
+                active = (active & ~done) | take
+                next_work = torch.minimum(next_work + free.sum(), self.w_total)
+                if self.sort_rays:
+                    # Park dead lanes far away so their tiles activate no chunk.
+                    o = where3(alive, o, self.far)
+        return dict(o=o, d=d, throughput=throughput, radiance=radiance, alive=alive,
+                    active=active, slot=slot, sample=sample, depth=depth, hint=hint,
+                    next_work=next_work, n_bounce=n_bounce)
+
+
+_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _static_key(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: int,
+                iterations: int):
+    """(cache key, the scene's tensors) of a compiled loop: the JAX
+    package's static arguments (lane count, config, accumulator rows) with
+    the scene as the identity of its tensors and its plain fields, the
+    camera's pixel size and the iteration count; the camera's tensors are
+    copied in at every call instead."""
+    tensors, plain = [], []
+
+    def walk(obj, prefix):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if f.name == "camera":
+                plain.append((prefix + "camera", v.width, v.height))
+            elif isinstance(v, torch.Tensor):
+                tensors.append(v)
+            elif dataclasses.is_dataclass(v):
+                walk(v, prefix + f.name + ".")
+            else:
+                plain.append((prefix + f.name, v))
+
+    walk(scene, "")
+    config = dataclasses.replace(config, tuning=config.tuning.resolve())
+    key = (str(scene.device), tuple(id(t) for t in tensors), tuple(plain), config, n_rays, rows,
+           iterations)
+    return key, tensors
+
+
+def _compiled_loop(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: int,
+                   iterations: int) -> dict:
+    """The cached compiled loop of this static configuration (made at the
+    first call; the graph itself is captured at the first run)."""
+    key, tensors = _static_key(scene, config, n_rays, rows, iterations)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        dev = scene.device
+        cam = scene.camera
+        camera = dataclasses.replace(
+            cam, **{name: torch.empty_like(getattr(cam, name), device=dev)
+                    for name in ("position", "right", "up", "forward", "fov_x")})
+        scalars = torch.zeros(5, dtype=torch.int64, device=dev)
+        # The graph reads the scene's tensors by address: the entry keeps
+        # them alive, so no other tensor can take their memory (or ids).
+        entry = dict(loop=_PersistentLoop(scene, config, n_rays, rows, camera, scalars),
+                     block=None, tensors=tensors)
+        _GRAPHS[key] = entry
+        while len(_GRAPHS) > GRAPH_CACHE:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS.move_to_end(key)
+    return entry
+
+
+def clear_compiled_loops() -> None:
+    """Drop every cached compiled loop (and the memory its graph holds)."""
+    _GRAPHS.clear()
+
+
 def persistent_accum(
     scene: TriangleScene,
-    chunk_start: int,  # first linear pixel id of this lane block
-    seed: int,
-    sample_start: int,  # first global sample index
+    chunk_start,  # first linear pixel id of this lane block
+    seed,
+    sample_start,  # first global sample index
     n_rays: int,  # lane count
-    w_total: int,  # work-pool size (pixels * samples)
+    w_total,  # work-pool size (pixels * samples)
     config: RenderConfig,
-    pix_count: int | None = None,  # pixels of the pool (None = n_rays)
+    pix_count=None,  # pixels of the pool (None = n_rays)
     accum_rows: int | None = None,  # accumulator rows (None = n_rays)
+    *,
+    eager: bool = False,
 ):
     """Persistent wavefront with path regeneration.  Work item w covers
     (pixel slot w % P, local sample w // P), P = pix_count or n_rays.
     Returns ([rows, 3] radiance sum, [] int64 live lanes summed over
-    bounces = rays traced)."""
+    bounces = rays traced).
+
+    ``chunk_start``, ``seed``, ``sample_start``, ``w_total`` and
+    ``pix_count`` are the JAX package's traced arguments: each may be a
+    Python int or a 0-d tensor, with the same result.  The iterations run
+    in one of two loops (``engine_loop``):
+
+      "eager"  one host read of "is work left?" before every iteration
+               (``eager=True``, and intersector mode "bins" on CUDA);
+      "graph"  blocks of ``LOOP_ITERATIONS`` iterations with one host read
+               each, over buffers cached per static configuration
+               (``CapturedBlock``): on CUDA the block is one CUDA graph,
+               captured at the first call and replayed for every block,
+               chunk, pass, seed and camera (the port of the JAX package's
+               jitted ``lax.while_loop``), and the launch counters of the
+               kernel wrappers go up by the launches a replay runs; a
+               capture that fails raises.  On the CPU the block runs as it
+               is.
+
+    Both give the same frame and rays, bit for bit.  Running up to
+    ``LOOP_ITERATIONS - 1`` iterations past the end changes nothing: after
+    every iteration ``active`` implies ``alive``, so once no lane is alive
+    and no work is left, ``done`` and ``take`` are all false, ``add_rows``
+    adds exact zeros to the drop rows only (past ``rows``), ``n_bounce``
+    adds 0 and ``next_work`` stays at ``w_total``.
+    ``persistent_accum.iterations`` counts the iterations run."""
     dev = scene.device
     pool_pix = n_rays if pix_count is None else pix_count
     rows = n_rays if accum_rows is None else accum_rows
-    sort_rays = scene.capacity > 1024 and n_rays >= 2048
-    key_fn = _make_sort_key(scene, config, n_rays) if sort_rays else None
-    far = torch.full((3,), 1e30, device=dev)
+    kind = engine_loop(config, dev, eager)
+    k = LOOP_ITERATIONS
+    scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
+    if kind == "eager":
+        body = _PersistentLoop(scene, config, n_rays, rows, scene.camera, scalars)
+        c = body.start()
+        while bool(body.more(c)):
+            c = body.iteration(c)
+            persistent_accum.iterations += 1
+        return body.accum[:rows], c["n_bounce"]
 
-    def spawn(work_ids, valid):
-        w = torch.where(valid, work_ids, torch.zeros_like(work_ids))
-        slot = (w % pool_pix).to(torch.int32)
-        s = (w // pool_pix).to(torch.int32)
-        pids = chunk_start + slot
-        o, d = gen_rays(scene.camera, pids,
-                        jitter_uniforms(seed, sample_start + s, pids, config.jitter))
-        return o, d, slot, s
-
-    iota = torch.arange(n_rays, dtype=torch.int64, device=dev)
-    valid0 = iota < w_total
-    o, d, slot, sample = spawn(iota, valid0)
-    alive = valid0 & torch.isfinite(o[:, 0])
-    active = alive.clone()
-    throughput = torch.ones_like(o)
-    radiance = torch.zeros_like(o)
-    depth = torch.zeros(n_rays, dtype=torch.int32, device=dev)
-    hint = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
-    next_work = torch.tensor(min(n_rays, w_total), dtype=torch.int64, device=dev)
-    # Rows past ``rows``: one drop row per lane for the lanes that finish
-    # nothing, so the only repeated rows are pixels finishing two samples
-    # at once (``add_rows`` adds one row's repeats one after another).
-    accum = torch.zeros((rows + n_rays, 3), device=dev)
-    drop = rows + iota
-    n_bounce = torch.zeros((), dtype=torch.int64, device=dev)
-
-    while bool(alive.any() | (next_work < w_total)):
-        if sort_rays:
-            perm = torch.argsort(key_fn(o, d, alive, hint), stable=True)
-            o, d, throughput, radiance = o[perm], d[perm], throughput[perm], radiance[perm]
-            alive, active, slot = alive[perm], active[perm], slot[perm]
-            sample, depth, hint = sample[perm], depth[perm], hint[perm]
-        n_bounce = n_bounce + alive.sum()
-        draws = bounce_draws(seed, sample_start + sample, depth, chunk_start + slot, config)
-        o, d, throughput, radiance, alive2, hint = bounce_step(
-            scene, config, o, d, throughput, radiance, alive, draws
-        )
-        alive2 = alive2 & alive
-        depth = depth + 1
-
-        # Termination: killed this bounce, or the depth budget exhausted
-        # (which adds throughput * 0, the reference's NaN algebra).
-        exhausted = alive2 & (depth >= scene.ray_depth)
-        radiance = radiance + torch.where(
-            exhausted[:, None], throughput * 0.0, torch.zeros_like(radiance)
-        )
-        done = active & (~alive2 | exhausted)
-        alive2 = alive2 & ~exhausted
-        contrib = torch.where(done[:, None], sanitize_nans(radiance), torch.zeros_like(radiance))
-        add_rows(accum, torch.where(done, slot.long(), drop), contrib)
-
-        # Regenerate: freed lanes pull the next work items.
-        free = done | ~active
-        work_ids = next_work + torch.cumsum(free.to(torch.int64), 0) - 1
-        take = free & (work_ids < w_total)
-        no, nd, nslot, nsample = spawn(work_ids, take)
-        o = where3(take, no, o)
-        d = where3(take, nd, d)
-        throughput = torch.where(take[:, None], torch.ones_like(throughput), throughput)
-        radiance = torch.where(take[:, None], torch.zeros_like(radiance), radiance)
-        slot = torch.where(take, nslot, slot)
-        sample = torch.where(take, nsample, sample)
-        depth = torch.where(take, torch.zeros_like(depth), depth)
-        hint = torch.where(take, torch.full_like(hint, -1), hint)
-        alive = alive2 | take
-        active = (active & ~done) | take
-        next_work = torch.clamp_max(next_work + free.sum(), w_total)
-        if sort_rays:
-            # Park dead lanes far away so their tiles activate no chunk.
-            o = where3(alive, o, far)
-    return accum[:rows], n_bounce
+    entry = _compiled_loop(scene, config, n_rays, rows, k)
+    body = entry["loop"]
+    for name in ("position", "right", "up", "forward", "fov_x"):
+        getattr(body.camera, name).copy_(getattr(scene.camera, name))
+    body.scalars.copy_(scalars)
+    carries = body.start()
+    if entry["block"] is None:
+        entry["block"] = CapturedBlock(body.iteration, body.more, carries, k)
+    else:
+        entry["block"].load(carries)
+    block = entry["block"]
+    while True:
+        more = block.run()
+        persistent_accum.iterations += k
+        if not more:
+            break
+    # Copies: the next call of this loop overwrites its buffers.
+    return body.accum[:rows].clone(), block.carries["n_bounce"].clone()
 
 
-def render_chunk_persistent(scene, chunk_start: int, seed: int, sample_start: int,
-                            n_rays: int, spp: int, config: RenderConfig,
-                            pix_count: int | None = None, accum_rows: int | None = None):
+persistent_accum.iterations = 0
+
+
+def render_chunk_persistent(scene, chunk_start, seed, sample_start, n_rays: int, spp: int,
+                            config: RenderConfig, pix_count=None, accum_rows: int | None = None,
+                            *, eager: bool = False):
     """Mean radiance over ``spp`` samples of one pixel pool, and the rays
-    traced."""
+    traced (``eager``: see ``persistent_accum``)."""
     pool_pix = n_rays if pix_count is None else pix_count
     acc, n_bounce = persistent_accum(
         scene, chunk_start, seed, sample_start, n_rays, pool_pix * spp, config,
-        pix_count=pix_count, accum_rows=accum_rows,
+        pix_count=pix_count, accum_rows=accum_rows, eager=eager,
     )
     return acc / spp, n_bounce
 
@@ -505,7 +719,8 @@ def pick_chunk(config: RenderConfig, npix: int) -> int:
 
 
 def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig | None = None,
-           progress: bool = False, timer=None, stats: dict | None = None) -> np.ndarray:
+           progress: bool = False, timer=None, stats: dict | None = None, *,
+           eager: bool = False) -> np.ndarray:
     """Full-frame render -> host numpy [H, W, 3] float32 HDR radiance.
 
     Pixel chunks of ``pick_chunk`` lanes (or, with the persistent engine,
@@ -526,7 +741,11 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     way and the retries re-raise.  With the persistent engine
     ``stats["measured_rays"]`` receives the number of rays traced (live
     lanes entering each bounce) by the executions that succeeded; the scan
-    engine leaves ``stats`` untouched, as in the JAX package."""
+    engine leaves ``stats`` untouched, as in the JAX package.  The
+    persistent engine runs its loop as a CUDA graph on CUDA (eagerly under
+    intersector mode "bins") and in host-read batches on the CPU
+    (``persistent_accum``); ``eager=True`` runs it with a host read per
+    iteration instead, and ``stats["loop"]`` receives the loop taken."""
     config = config or RenderConfig()
     check_config(config)
     phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
@@ -563,7 +782,8 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                     else:
                         pc, ar = (None if n == chunk else n), None
                     rad, nb = render_chunk_persistent(
-                        scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar
+                        scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar,
+                        eager=eager,
                     )
                     rays += int(nb)
                 contrib = rad * float(todo)
@@ -588,4 +808,5 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
         measured += rays
     if stats is not None and config.compaction:
         stats["measured_rays"] = measured
+        stats["loop"] = engine_loop(config, scene.device, eager)
     return out.reshape(h, w, 3)

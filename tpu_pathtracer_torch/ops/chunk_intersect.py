@@ -67,6 +67,7 @@ import torch.nn.functional as F
 
 from ..config import IntersectTuning
 from ..kernels import made_once
+from ..utils.profiling import stage
 from .intersect import Hit, winner_barycentrics
 
 RAY_TILE = 512  # rays per tile
@@ -228,9 +229,10 @@ def tile_chunk_activity(
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.activity(
-            rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub
-        )
+        with stage("kernels"):
+            out = kernels.activity(
+                rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub
+            )
         tile_chunk_activity.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -362,9 +364,10 @@ def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.items(
-            rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
-        )
+        with stage("kernels"):
+            out = kernels.items(
+                rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
+            )
         run_items.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -419,7 +422,8 @@ def run_dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
+        with stage("kernels"):
+            out = kernels.dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
         run_dense.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -448,9 +452,10 @@ def run_slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.slots(
-            rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
-        )
+        with stage("kernels"):
+            out = kernels.slots(
+                rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
+            )
         run_slots.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -501,7 +506,8 @@ def ray_group_bools(rays, chunk_min, chunk_max, min_dst: float, group: int = GRO
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.ray_groups(rays, cmin, cmax, min_dst, group)
+        with stage("kernels"):
+            out = kernels.ray_groups(rays, cmin, cmax, min_dst, group)
         ray_group_bools.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -851,7 +857,8 @@ def run_light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
     if rays.is_cuda:
         from .. import kernels
 
-        out = kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
+        with stage("kernels"):
+            out = kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
         run_light_pdf.launches += 1
         return out
     if rays.device.type == "cpu":
@@ -953,7 +960,8 @@ def nearest_box_ids(
     if rays.is_cuda:
         from .. import kernels
 
-        _, ids = kernels.nearest(rays, bmin, bmax, min_dst)
+        with stage("kernels"):
+            _, ids = kernels.nearest(rays, bmin, bmax, min_dst)
         nearest_box_ids.launches += 1
         return ids
     if rays.device.type == "cpu":

@@ -9,6 +9,13 @@ depth) into the seed's key words.  There is no global RNG state.
 torch has thin uint32 support, so the u32 arithmetic runs in int64 with an
 explicit ``& 0xFFFFFFFF`` after every add and shift; the final
 ``bits >> 9 | 0x3F800000`` mantissa trick reinterprets int32 bits as f32.
+
+``lane_uniforms_key`` (and through it ``lane_uniforms``, the uniform
+camera jitter and ``per_pixel_uniforms``) runs the hand-written kernel of
+``csrc/rng_kernels.cu`` on CUDA tensors and its plain twin
+``lane_uniforms_key_plain`` on CPU tensors; the two are equal bit for bit.
+A seed or a key word may be a 0-d tensor: the kernel reads it on the
+device, so a captured render loop follows its value.
 """
 
 from __future__ import annotations
@@ -64,16 +71,35 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def key_words(seed: int) -> Tuple[int, int]:
+def key_words(seed: _Int) -> Tuple[int, _Int]:
     """The two key words of ``jax.random.key(seed)`` (threefry, 32-bit mode):
-    ``[0, seed mod 2^32]``."""
-    return 0, int(seed) & _M32
+    ``[0, seed mod 2^32]`` (the second a 0-d int64 tensor for a tensor
+    seed)."""
+    return 0, _u32(seed)
 
 
 def fold_in(k0: int, k1: int, n: int) -> Tuple[int, int]:
     """The key words of ``jax.random.fold_in(key, n)`` for a key of words
     (k0, k1): one threefry block of the counter (0, n)."""
     return tf2x32(k0, k1, 0, n)
+
+
+def lane_uniforms_key_plain(
+    k0: _Int,
+    k1: _Int,
+    sample: _Int,  # scalar or [R] global sample index
+    depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
+    pixel: torch.Tensor,  # [R] linear pixel ids
+    n_draws: int,
+) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
+    """Plain twin of the threefry kernel (``lane_uniforms_key``'s contract)."""
+    dev = pixel.device
+    a0, a1 = tf2x32(k0, k1, sample, depth)
+    # All ceil(n/2) counter blocks in one broadcast: [B, 1] block ids x [R].
+    blocks = torch.arange((n_draws + 1) // 2, dtype=torch.int64, device=dev)
+    x0, x1 = tf2x32(a0, a1, pixel[None, :], blocks[:, None])
+    draws = torch.stack([_bits_to_unit(x0), _bits_to_unit(x1)], dim=1)
+    return draws.reshape(-1, pixel.shape[0])[:n_draws]
 
 
 def lane_uniforms_key(
@@ -86,18 +112,24 @@ def lane_uniforms_key(
 ) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
     """``lane_uniforms`` under the key words (k0, k1) instead of a seed: the
     JAX package's ``lane_uniforms(key, ...)`` for any key, folded ones
-    included."""
-    dev = pixel.device
-    a0, a1 = tf2x32(k0, k1, sample, depth)
-    # All ceil(n/2) counter blocks in one broadcast: [B, 1] block ids x [R].
-    blocks = torch.arange((n_draws + 1) // 2, dtype=torch.int64, device=dev)
-    x0, x1 = tf2x32(a0, a1, pixel[None, :], blocks[:, None])
-    draws = torch.stack([_bits_to_unit(x0), _bits_to_unit(x1)], dim=1)
-    return draws.reshape(-1, pixel.shape[0])[:n_draws]
+    included.  The threefry kernel for a CUDA ``pixel``, the plain twin for a
+    CPU one; it counts its kernel launches in ``launches``."""
+    if pixel.is_cuda:
+        from .. import kernels
+
+        out = kernels.uniforms(k0, k1, sample, depth, pixel, n_draws)
+        lane_uniforms_key.launches += 1
+        return out
+    if pixel.device.type == "cpu":
+        return lane_uniforms_key_plain(k0, k1, sample, depth, pixel, n_draws)
+    raise RuntimeError(f"lane_uniforms_key: no kernel for device {pixel.device}")
+
+
+lane_uniforms_key.launches = 0
 
 
 def lane_uniforms(
-    seed: int,
+    seed: _Int,
     sample: _Int,  # scalar or [R] global sample index
     depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
     pixel: torch.Tensor,  # [R] linear pixel ids
@@ -173,7 +205,7 @@ def _sobol_point(idx: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch
     return torch.stack([_bits_to_unit(d1), _bits_to_unit(d2)], dim=0)
 
 
-def sobol_owen_2d(seed: int, sample: _Int, pixel: torch.Tensor) -> torch.Tensor:
+def sobol_owen_2d(seed: _Int, sample: _Int, pixel: torch.Tensor) -> torch.Tensor:
     """[2, R] Owen-scrambled 2D Sobol point ``sample`` (scalar or [R]) of
     each pixel's sequence; the per-pixel scramble seeds are one threefry
     block of (pixel, 0) under the 'SOBL' tag."""
@@ -183,7 +215,7 @@ def sobol_owen_2d(seed: int, sample: _Int, pixel: torch.Tensor) -> torch.Tensor:
     return _sobol_point(_u32(sample) + p * 0, s1, s2)
 
 
-def sobol_owen_pair(seed: int, sample: _Int, depth: _Int, pixel: torch.Tensor,
+def sobol_owen_pair(seed: _Int, sample: _Int, depth: _Int, pixel: torch.Tensor,
                     tag: int) -> torch.Tensor:
     """[2, R] point ``sample`` of the per-(pixel, depth, tag) Owen-scrambled
     (0,2)-sequence: the bounce-draw form of ``sobol_owen_2d``."""
@@ -194,7 +226,7 @@ def sobol_owen_pair(seed: int, sample: _Int, depth: _Int, pixel: torch.Tensor,
 
 
 def jitter_uniforms(
-    seed: int, sample: _Int, pixel: torch.Tensor, kind: str = "uniform"
+    seed: _Int, sample: _Int, pixel: torch.Tensor, kind: str = "uniform"
 ) -> torch.Tensor:  # [2, R]
     """Camera-jitter draws: the JITTER_DEPTH lane stream ("uniform") or the
     Owen-scrambled Sobol point ("sobol")."""

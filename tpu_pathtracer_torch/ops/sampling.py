@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from .vecmath import cross, dot, frame_apply, normalize, reflect
+from .vecmath import constant, cross, dot, frame_apply, normalize, reflect
 
 PI = math.pi
 
@@ -67,7 +67,7 @@ def vndf_sample(roughness, in_dir, normal, u1, u2) -> torch.Tensor:
     t1 = torch.where(
         (lensq > 0)[..., None],
         t1_raw / torch.sqrt(torch.clamp_min(lensq, 1e-38))[..., None],
-        torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device),
+        constant((1.0, 0.0, 0.0), vh),
     )
     t2 = cross(vh, t1)
     r = torch.sqrt(u1)

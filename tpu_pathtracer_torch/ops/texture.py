@@ -15,6 +15,7 @@ import math
 import torch
 
 from ..scene.types import TextureAtlas
+from .vecmath import constant
 
 
 def _mod1(x: torch.Tensor) -> torch.Tensor:
@@ -97,10 +98,9 @@ def sample_many(
             dim=1,
         )  # [R, corner, K]
         flat0 = atlas.texels[idx.reshape(n, -1).long()].reshape(n, 16 * k)
-    gam_lane = torch.tensor(
+    gam_lane = constant(
         [gammas[kk] if ch < 3 else 1.0
-         for _corner in range(4) for kk in range(k) for ch in range(4)],
-        dtype=uv.dtype, device=uv.device,
+         for _corner in range(4) for kk in range(k) for ch in range(4)], uv,
     )[None, :]
     # gamma-1 lanes bypass pow entirely, as in the JAX package.
     dec = torch.where(gam_lane == 1.0, flat0, torch.pow(flat0, gam_lane))

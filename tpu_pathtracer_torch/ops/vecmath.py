@@ -5,6 +5,21 @@ from __future__ import annotations
 
 import torch
 
+_CONSTANTS: dict = {}
+
+
+def constant(values, like: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A small constant tensor on ``like``'s device (of ``like``'s dtype unless
+    ``dtype`` is given), made once per (values, dtype, device): a copy from
+    the host at every call would stop a loop from being captured in a CUDA
+    graph."""
+    dtype = dtype or like.dtype
+    key = (tuple(values), dtype, like.device)
+    out = _CONSTANTS.get(key)
+    if out is None:
+        out = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=like.device)
+    return out
+
 
 def dot(a, b, keepdim: bool = False):
     return torch.sum(a * b, dim=-1, keepdim=keepdim)

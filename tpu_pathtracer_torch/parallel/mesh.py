@@ -32,6 +32,7 @@ import torch.distributed as dist
 from ..config import RenderConfig
 from ..models.pathtracer import (
     check_config,
+    engine_loop,
     gen_rays,
     persistent_accum,
     pick_chunk,
@@ -262,4 +263,5 @@ def render_sharded(
         measured += int(rays.cpu().numpy().astype(np.int64).sum())
     if stats is not None and config.compaction:
         stats["measured_rays"] = measured
+        stats["loop"] = engine_loop(config, scene.device)
     return out.reshape(h, w, 3)

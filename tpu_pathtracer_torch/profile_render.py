@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of a render goes on one CUDA card.
+"""Where the time of a render goes on one CUDA card, eager loop against graph.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -7,25 +7,30 @@ Run from the repository root on a machine with one CUDA card:
 
 Each case is a scene made by ``scene/fixtures.py`` as ``chip_smoke.py``
 makes it, rendered at 512x512 by ``models.pathtracer.render`` after one
-warm-up render at 1 spp, three times:
+warm-up render at 1 spp with each loop:
 
-- timed: at 16 spp with nothing added: seconds, iterations of the
-  wavefront loop (``bounce_step`` calls) and launches of kernels B1-B7;
-- synced: at 16 spp with ``torch.cuda.synchronize()`` around the sort
-  key, the intersector (``closest_hit_chunks``) and the many-light pdf
-  (``light_pdf_sum_chunks``): host milliseconds per iteration of each, and
-  of the rest of the iteration;
-- profiled: at 4 spp under ``torch.profiler`` (CPU and CUDA):
-  the device's busy milliseconds per iteration (the sum of its kernel and
-  memory-operation times: the render runs on one stream) against the wall
-  of this render and of the timed one, the kernels that take the most
-  device time, and the activity kernel (B1) and the intersector's Woop
-  kernel (B2 or B6) by their place among an iteration's launches.
+- timed: at 16 spp with the persistent engine's per-iteration "eager" loop
+  and its CUDA graph, in turns (eager, graph, graph, eager): seconds,
+  iterations run, and ms per useful iteration (the eager loop's count);
+- stages: at 4 spp, eager, under ``torch.profiler`` with the loop's stage
+  ranges on (``utils.profiling.stage``): the device operations launched per
+  iteration and their device ms, split by stage, each launch given to the
+  innermost stage range around it.  Twice: "before", with the threefry
+  draws as the plain-torch twin (the loop as it was before the threefry
+  kernel), and "after", with the kernel;
+- busy: the device's busy ms per iteration (the sum of its kernel and
+  memory-operation times: the render runs on one stream) of the eager and
+  the graph loop at 4 spp under ``torch.profiler``, against the timed
+  renders' ms per iteration; the kernels that take the most device time;
+  and the activity kernel (B1) and the intersector's Woop kernel (B2 or B6)
+  by their place among an iteration's launches.
 
 Prints one JSON line per case, then the card's ``nvidia-smi`` name, power
 limit, SM clock and power draw.
 """
 
+import bisect
+import contextlib
 import dataclasses
 import json
 import os
@@ -38,6 +43,23 @@ import torch
 W = H = 512
 SPP, PROFILE_SPP = 16, 4
 CASES = ("atrium", "atrium_twopass", "lit_atrium", "env_field")
+# Stage ranges of the loop (utils.profiling.stage) -> the row they fill.
+STAGES = {
+    "sort": "sort + carry permutation",
+    "draws": "bounce_draws",
+    "spawn": "spawn (jitter_uniforms + gen_rays)",
+    "hit_info": "hit_info + texture",
+    "shading": "sampling / BSDF",
+    "light_pdf": "light pdf",
+    "intersector": "cascade glue",
+    "kernels": "B1-B7 launches",
+    "add_rows": "add_rows",
+    "regenerate": "regeneration",
+    "loop": "loop glue",
+}
+# Host calls that put one operation on the device.
+_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+             "cudaMemsetAsync", "cudaMemcpyAsync", "cudaMemcpy", "cudaGraphLaunch")
 
 
 def _scene_and_config(case, tmp):
@@ -70,82 +92,84 @@ def _scene_and_config(case, tmp):
     return scene, config, textured
 
 
-def _wrappers():
-    from .ops import chunk_intersect as ci
-
-    return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
-            "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
-            "b7": ci.ray_group_bools}
-
-
-class _Patched:
-    """Counts ``bounce_step`` calls and, when ``sync`` is set, accumulates the
-    synchronised host time of the sort key, the intersector and the
-    many-light pdf.  Restores the module's functions on exit."""
-
-    def __init__(self, sync):
-        from .models import pathtracer as pt
-
-        self.pt, self.sync = pt, sync
-        self.iterations = 0
-        self.ms = {"sort_key": 0.0, "intersector": 0.0, "light_pdf": 0.0}
-
-    def _timed(self, name, fn):
-        def run(*a, **kw):
-            if not self.sync:
-                return fn(*a, **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            self.ms[name] += (time.perf_counter() - t0) * 1e3
-            return out
-        return run
-
-    def __enter__(self):
-        pt = self.pt
-        self.saved = {k: getattr(pt, k) for k in
-                      ("bounce_step", "closest_hit_chunks", "light_pdf_sum_chunks", "_make_sort_key")}
-        step, make_key = self.saved["bounce_step"], self.saved["_make_sort_key"]
-
-        def bounce_step(*a, **kw):
-            self.iterations += 1
-            return step(*a, **kw)
-
-        pt.bounce_step = bounce_step
-        pt.closest_hit_chunks = self._timed("intersector", self.saved["closest_hit_chunks"])
-        pt.light_pdf_sum_chunks = self._timed("light_pdf", self.saved["light_pdf_sum_chunks"])
-        pt._make_sort_key = lambda *a, **kw: self._timed("sort_key", make_key(*a, **kw))
-        return self
-
-    def __exit__(self, *exc):
-        for k, v in self.saved.items():
-            setattr(self.pt, k, v)
-
-
-def _render(scene, config, spp, sync=False):
+def _render(scene, config, spp, loop):
+    """(seconds, iterations run, launches) of one render."""
     from .models import pathtracer as pt
+    from .models.graph import counted_wrappers
 
-    for fn in _wrappers().values():
+    for fn in counted_wrappers():
         fn.launches = 0
-    with _Patched(sync) as patch:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pt.render(scene, spp=spp, seed=0, config=config)
-        seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in _wrappers().items()}
-    return seconds, patch, launches
+    pt.persistent_accum.iterations = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.render(scene, spp=spp, seed=0, config=config, eager=loop == "eager")
+    seconds = time.perf_counter() - t0
+    return seconds, pt.persistent_accum.iterations, {fn.__name__: fn.launches
+                                                     for fn in counted_wrappers()}
+
+
+@contextlib.contextmanager
+def _plain_threefry():
+    """The threefry draws as the plain-torch twin on the card (the loop before
+    the threefry kernel), for a "before" profile only."""
+    from .ops import rng
+
+    kernel = rng.lane_uniforms_key
+    rng.lane_uniforms_key = rng.lane_uniforms_key_plain
+    try:
+        yield
+    finally:
+        rng.lane_uniforms_key = kernel
 
 
 def _device_times(prof):
-    """{kernel or memory operation: (device ms, count)} from a profile."""
+    """{kernel or memory operation: (device ms, count)} from a profile (the
+    stage ranges' own spans on the device's timeline left out)."""
     out = {}
     for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.key not in STAGES:
             ms = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0)) / 1e3
             if ms > 0:
                 out[ev.key] = (ms, ev.count)
     return out
+
+
+def _stage_split(prof, iterations):
+    """{row: [device operations launched per iteration, their device ms per
+    iteration or None]}: each host launch call is given to the innermost
+    stage range around it on its thread, and its device operation's time is
+    found by the correlation id the two share."""
+    events = prof.events()
+    cpu = [e for e in events if str(getattr(e, "device_type", "")).endswith("CPU")]
+    dev_ms = {}
+    for e in events:
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev_ms[e.id] = dev_ms.get(e.id, 0.0) + e.time_range.elapsed_us() / 1e3
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name, e.thread)
+                    for e in cpu if e.name in STAGES)
+    calls = sorted((e.time_range.start, e.thread, e.id) for e in cpu if e.name in _LAUNCHES)
+    out = {row: [0, 0.0] for row in list(STAGES.values()) + ["outside the loop"]}
+    matched = 0
+    by_thread = {}
+    for r in ranges:
+        by_thread.setdefault(r[3], []).append(r)
+    for thread, rs in by_thread.items():
+        starts = [r[0] for r in rs]
+        for t, th, cid in calls:
+            if th != thread:
+                continue
+            # The innermost range: the latest start before t whose end is after t.
+            k = bisect.bisect_right(starts, t) - 1
+            while k >= 0 and rs[k][1] < t:
+                k -= 1
+            row = STAGES[rs[k][2]] if k >= 0 else "outside the loop"
+            out[row][0] += 1
+            if cid in dev_ms:
+                out[row][1] += dev_ms[cid]
+                matched += 1
+    n = max(len(calls), 1)
+    return {row: [c / iterations, (ms / iterations) if matched else None]
+            for row, (c, ms) in out.items()}, matched / n
 
 
 def _per_pass(prof, iterations):
@@ -167,42 +191,75 @@ def _per_pass(prof, iterations):
     return out
 
 
-def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
+def _profiled(scene, config, spp, loop, stages=False):
     from torch.profiler import ProfilerActivity, profile
 
+    from .utils.profiling import label_stages
+
+    labels = label_stages() if stages else contextlib.nullcontext()
+    with labels, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        seconds, iterations, _ = _render(scene, config, spp, loop)
+    return prof, seconds, iterations
+
+
+def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
     scene, config, textured = _scene_and_config(case, tmp)
-    _render(scene, config, 1)  # warm-up: builds and loads the kernels
-    seconds, patch, launches = _render(scene, config, spp)
-    iters = patch.iterations
-    s_sync, synced, _ = _render(scene, config, spp, sync=True)
-    per_it = {k: v / synced.iterations for k, v in synced.ms.items()}
-    wall_sync = s_sync * 1e3 / synced.iterations
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s_prof, profiled, _ = _render(scene, config, profile_spp)
-    dev = _device_times(prof)
-    busy = sum(ms for ms, _ in dev.values())
-    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:12]
-    n = profiled.iterations
+    for loop in ("eager", "graph"):  # builds the kernels, captures the graph
+        _render(scene, config, 1, loop)
+    timed = {"eager": [], "graph": []}
+    launches = {}
+    for loop in ("eager", "graph", "graph", "eager"):
+        seconds, iterations, launches[loop] = _render(scene, config, spp, loop)
+        timed[loop].append((seconds, iterations))
+    useful = timed["eager"][0][1]
+
+    stages = {}
+    _profiled(scene, config, 1, "eager", stages=True)  # the profiler's first cycle
+    for form in ("before", "after"):
+        with _plain_threefry() if form == "before" else contextlib.nullcontext():
+            prof, seconds, iterations = _profiled(scene, config, profile_spp, "eager", stages=True)
+        split, matched = _stage_split(prof, iterations)
+        dev = _device_times(prof)
+        stages[form] = {
+            "iterations": iterations,
+            "device_ops_per_iteration": sum(c for _, c in dev.values()) / iterations,
+            "busy_ms_per_iteration": sum(ms for ms, _ in dev.values()) / iterations,
+            "launches_matched_to_device": matched,
+            "by_stage": split,
+        }
+        if form == "after":
+            eager_prof, eager_dev = prof, dev
+    busy = {}
+    for loop in ("eager", "graph"):
+        if loop == "eager":
+            prof, dev, iterations = eager_prof, eager_dev, stages["after"]["iterations"]
+        else:
+            prof, _, iterations = _profiled(scene, config, profile_spp, loop)
+            dev = _device_times(prof)
+        ms = sum(m for m, _ in dev.values())
+        timed_it = sum(s for s, _ in timed[loop]) * 1e3 / sum(i for _, i in timed[loop])
+        busy[loop] = {
+            "iterations": iterations, "kernels_seen": len(dev),
+            "busy_ms_per_iteration": ms / iterations if dev else None,
+            "device_ops_per_iteration": sum(c for _, c in dev.values()) / iterations if dev else None,
+            "timed_ms_per_iteration": timed_it,
+            "busy_share_of_timed": ms / iterations / timed_it if dev else None,
+        }
+        if loop == "eager":
+            top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:12]
+            by_pass = _per_pass(prof, iterations)
+    eager_busy = busy["eager"]["busy_ms_per_iteration"]
     return {
-        "case": case, "textured": textured, "spp": spp,
-        "seconds_render": seconds, "iterations": iters, "ms_per_iteration": seconds * 1e3 / iters,
+        "case": case, "textured": textured, "spp": spp, "useful_iterations": useful,
+        "timed": {loop: [{"seconds": s, "iterations": i, "ms_per_useful_iteration": s * 1e3 / useful}
+                         for s, i in runs] for loop, runs in timed.items()},
         "launches": launches,
-        "synced": {"seconds_render": s_sync, "ms_per_iteration": wall_sync,
-                   **{f"{k}_ms_per_iteration": v for k, v in per_it.items()},
-                   "rest_ms_per_iteration": wall_sync - sum(per_it.values())},
-        "profiled": {
-            "spp": profile_spp, "iterations": n, "seconds_render": s_prof,
-            "wall_ms_per_iteration": s_prof * 1e3 / n,
-            "device_busy_ms_per_iteration": busy / n if dev else None,
-            "device_busy_share": busy / (s_prof * 1e3) if dev else None,
-            # The profiler slows the host: busy per iteration over the
-            # timed render's wall per iteration is the share without it.
-            "device_busy_share_of_timed": busy / n / (seconds * 1e3 / iters) if dev else None,
-            "device_ops_per_iteration": sum(c for _, c in dev.values()) / n if dev else None,
-            "kernel_ms_by_pass": _per_pass(prof, n),
-            "top": [{"name": k[:120], "ms_per_iteration": ms / n, "share_of_busy": ms / busy,
-                     "count": c, "ms_per_call": ms / c} for k, (ms, c) in top],
-        },
+        "stages": stages,
+        "busy": busy,
+        "kernel_ms_by_pass": by_pass,
+        "top": [{"name": k[:120], "ms_per_iteration": ms / busy["eager"]["iterations"],
+                 "share_of_busy": ms / (eager_busy * busy["eager"]["iterations"]),
+                 "count": c, "ms_per_call": ms / c} for k, (ms, c) in top],
     }
 
 
@@ -211,12 +268,15 @@ def main():
         raise SystemExit("profile_render: no CUDA device")
     from .cli import select_device
     from .kernels import build
+    from .models.pathtracer import clear_compiled_loops
 
     select_device()
     build()
     with tempfile.TemporaryDirectory() as tmp:
         for case in CASES:
             print(json.dumps(profile_case(case, tmp)), flush=True)
+            clear_compiled_loops()
+            torch.cuda.empty_cache()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)

@@ -19,6 +19,28 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+_NULL = contextlib.nullcontext()
+_LABELS = [False]
+
+
+@contextlib.contextmanager
+def label_stages() -> Iterator[None]:
+    """Turn on ``stage``'s ranges for the enclosed code (a profile that splits
+    the render loop's device work by stage)."""
+    _LABELS[0] = True
+    try:
+        yield
+    finally:
+        _LABELS[0] = False
+
+
+def stage(name: str):
+    """A ``torch.profiler`` range named ``name`` around one stage of the
+    render loop while ``label_stages`` is on, else a context that does
+    nothing (a flag test: the loop pays no profiler call)."""
+    return torch.profiler.record_function(name) if _LABELS[0] else _NULL
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     """Trace the enclosed code into ``log_dir/trace.json``; no log dir, no
