@@ -53,8 +53,13 @@ and, with the persistent engine's loop as one CUDA graph (the default on
 the card) against the per-iteration eager loop:
 
   rng              the threefry kernel against its twin, bit for bit, in
-                   the bounce, camera-jitter and key-words forms on 65,536
-                   lanes;
+                   the bounce, camera-jitter, key-words and homebrew forms
+                   (every instance of the kernel) on 65,536 lanes and at
+                   the ragged 1 and 65,537, the bounce and jitter forms
+                   also on 262,144 and 1,048,576 lanes: timed at each lane
+                   count beside an empty launch, with the intercept (a
+                   launch's fixed cost) and slope (its cost a lane) of the
+                   line through the times;
   graph            the atrium at 512x512 @ 16 spp eager, graph, graph,
                    eager (frames identical, measured rays equal), the
                    graph's iterations per host read K tried at 4, 8, 16 and
@@ -125,19 +130,23 @@ CLOCK_HZ = 1.98e9
 WOOP_OPS = 55
 PDF_OPS = 65
 SLAB_OPS = 30
-# The threefry kernel (csrc/rng_kernels.cu) in lane operations.  A counter
-# block under a lane's stage key: 20 rounds of add, rotate (one funnel
-# shift) and xor, five key injections of two adds and x1's first add, 71
-# 32-bit integer operations; the key, its parity word, each injection's key
-# word plus round constant and x0's first add are the same in every block
-# of a lane.  The stage-key block: the rounds, the injections and both
-# first adds, 72 (the key and its injection words are the same on every
-# lane).  A draw: a shift and an or (integer) and a float32 subtract.
-# 32-bit integer operations run on 64 of an SM's 128 lanes.
-RNG_BLOCK_OPS = 71
-RNG_STAGE_OPS = 72
-RNG_DRAW_INT_OPS = 2
-INT32_LANES = 64
+# The threefry kernel (csrc/rng_kernels.cu) runs integer operations on two
+# pipes.  Each of an SM's four schedulers dispatches one warp instruction a
+# clock; the ALU pipe and the FMA pipe each take 16 lanes a clock of a
+# scheduler's, 64 an SM (INT_PIPE_LANES).  Counted from what the function
+# needs a lane, by the pipes that can run each operation: only the ALU pipe
+# rotates (SHF), xors (LOP3, which xors three words at once) and shifts and
+# ors a draw's bits into a float (LEA.HI); only the FMA pipe subtracts the
+# 1 (FADD); an add runs on either (IADD3 or IMAD), so the adds go where they
+# balance the two (``rng_lane_ops``).  A threefry block is 20 rounds of an
+# add, a rotate and a xor, 2 first adds and 10 key-injection adds (the
+# round number folds into a three-way add).  The SASS of the 10-draw
+# instance (``python3 -m tpu_pathtracer_torch.tune_kernels sass rng_kernels
+# uniforms_kernel``) holds the same 120 SHF, 122 LOP3, 10 LEA.HI and 10 FADD
+# and 201 adds (39 IADD3 / VIADD, 162 IMAD) against the 195 counted here.
+RNG_BLOCK_ALU = 40  # 20 rotates and 20 xors
+RNG_BLOCK_ADDS = 32  # 20 round adds, 2 first adds, 10 key injections
+INT_PIPE_LANES = 64
 
 
 def emit(phase, **kw):
@@ -181,14 +190,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
-def bound(pairs, ops_per_pair, n_bytes, lanes=128, int32_ops=0):
-    """(bound_ms, bound_by) for ``pairs`` pair tests of ``ops_per_pair`` lane
-    operations that move ``n_bytes``, on ``lanes`` lanes of each SM, and
-    ``int32_ops`` 32-bit integer operations on ``INT32_LANES`` lanes of each
-    SM (another pipe: the larger time bounds)."""
+def bound(pipes, n_bytes):
+    """(bound_ms, bound_by) for work of ``pipes`` {pipe: (lane operations,
+    lanes of an SM that pipe takes a clock)} that moves ``n_bytes``: the
+    busiest pipe's time against the bytes' time."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    t_ops = max(pairs * ops_per_pair / (sms * lanes * CLOCK_HZ),
-                int32_ops / (sms * INT32_LANES * CLOCK_HZ)) * 1e3
+    t_ops = max(ops / (sms * per_clock * CLOCK_HZ) for ops, per_clock in pipes.values()) * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1351,51 +1358,106 @@ def phase_sharded(path, tmp, main_row):
                              f"{main_row['measured_rays']}, {launches}")
 
 
-def phase_rng():
-    """The threefry kernel against its plain twin on 65,536 lanes, bit for
-    bit, in the three forms the port launches: the bounce draws (10 draws,
-    per-lane sample, depth and pixel, the seed a device scalar), the camera
-    jitter (2 draws at JITTER_DEPTH) and the key-words form of the homebrew
-    renderers (folded key words, scalar sample and depth).  Each is timed
-    beside its twin.  Returns {form: (ms, plain ms, int32 operations,
-    float32 operations, bytes, max abs error)}."""
-    from tpu_pathtracer_torch import kernels
+RNG_LANES = (N_RAYS, 4 * N_RAYS, 16 * N_RAYS)  # the bounce and jitter forms' timing shapes
+RNG_RAGGED = (1, N_RAYS + 1)
+
+
+def rng_forms(n, seed=0):
+    """The threefry kernel's inputs on ``n`` lanes, made from ``seed``, in
+    the forms the port launches: {form: (positional args, sample base, pixel
+    base)}.  "bounce": 10 draws of per-lane sample, depth and pool slot with
+    the render's traced seed, first sample and first pixel as device
+    scalars past 2^32 (how ``_PersistentLoop.iteration`` passes them);
+    "jitter": the camera jitter's 2 draws at JITTER_DEPTH, the same way;
+    "key_words": folded key words, scalar sample and depth, 8 draws (the
+    generic instance); "homebrew": ``per_pixel_uniforms``' 4 draws."""
     from tpu_pathtracer_torch.ops import rng
 
-    n = N_RAYS
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     pixel = torch.randint(0, W * H, (n,), generator=g, dtype=torch.int32).to(DEV)
     sample = torch.randint(0, SPP, (n,), generator=g, dtype=torch.int32).to(DEV)
     depth = torch.randint(0, 8, (n,), generator=g, dtype=torch.int32).to(DEV)
-    seed = torch.tensor(2**32 + 12345, dtype=torch.int64, device=DEV)
-    forms = {
-        "bounce": (*rng.key_words(seed), sample, depth, pixel, 10),
-        "jitter": (*rng.key_words(seed), sample, rng.JITTER_DEPTH, pixel, 2),
-        "key_words": (*rng.fold_in(*rng.key_words(7), 3), 0, 0, pixel, 8),
+    seed_t, sample0, pixel0 = (torch.tensor(v, dtype=torch.int64, device=DEV)
+                               for v in (2**32 + 12345, 2**32 + 3 * SPP, 2**33 + 7))
+    return {
+        "bounce": ((0, seed_t, sample, depth, pixel, 10), sample0, pixel0),
+        "jitter": ((0, seed_t, sample, rng.JITTER_DEPTH, pixel, 2), sample0, pixel0),
+        "key_words": ((*rng.fold_in(*rng.key_words(7), 3), 0, 0, pixel, 8), 0, 0),
+        "homebrew": ((*rng.fold_in(*rng.key_words(7), 5), 0, 0, pixel, 4), 0, 0),
     }
-    out = {}
-    for name, args in forms.items():
-        k = kernels.uniforms(*args)
-        k2 = kernels.uniforms(*args)
-        p = rng.lane_uniforms_key_plain(*args)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(k.view(torch.int32), p.view(torch.int32)))
-        det = bool(torch.equal(k, k2))
-        ms = queued_ms(lambda: kernels.uniforms(*args), 50)
-        plain_ms = sync_ms(lambda: rng.lane_uniforms_key_plain(*args), 10)
-        per_lane = any(isinstance(v, torch.Tensor) and v.dim() for v in args[2:4])
-        int_ops = (n * ((args[5] + 1) // 2) * RNG_BLOCK_OPS + n * args[5] * RNG_DRAW_INT_OPS
-                   + (n if per_lane else 1) * RNG_STAGE_OPS)
-        f32_ops = n * args[5]
-        n_bytes = 4 * n * args[5] + sum(4 * n for v in args[2:5]
-                                        if isinstance(v, torch.Tensor) and v.dim())
-        emit("rng", form=name, lanes=n, draws=args[5], bit_equal_to_twin=equal,
-             deterministic=det, max_abs_err=float((k - p).abs().max()), ms=ms,
-             plain_ms=plain_ms, int32_ops=int_ops, f32_ops=f32_ops, bytes=n_bytes)
-        if not (equal and det):
-            raise AssertionError(f"the threefry kernel differs from its twin ({name})")
-        out[name] = (ms, plain_ms, int_ops, f32_ops, n_bytes, float((k - p).abs().max()))
-    return out
+
+
+def fit_line(xs, ys):
+    """(intercept, slope) of the least-squares line through (xs, ys)."""
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return my - slope * mx, slope
+
+
+def rng_lane_ops(n_draws):
+    """{pipe: operations} a lane of the threefry kernel for ``n_draws`` with
+    per-lane sample, depth and pixel, its adds placed to balance the ALU
+    and FMA pipes: a stage-key block and a block per two draws, two parity
+    words, a shift-or and a subtract a draw, three sums of the stream."""
+    blocks = 1 + (n_draws + 1) // 2
+    alu = RNG_BLOCK_ALU * blocks + 2 + n_draws
+    fma = n_draws
+    adds = RNG_BLOCK_ADDS * blocks + 3
+    to_alu = min(adds, max(0, (fma + adds - alu + 1) // 2))
+    return {"alu": alu + to_alu, "fma": fma + adds - to_alu}
+
+
+def rng_work(n, n_draws=10):
+    """({pipe: (operations, lanes an SM takes a clock)}, bytes) of the
+    bounce draws on ``n`` lanes: three int32 inputs read, the draws
+    written."""
+    ops = {pipe: (n * v, INT_PIPE_LANES) for pipe, v in rng_lane_ops(n_draws).items()}
+    return ops, 4 * n * n_draws + 3 * 4 * n
+
+
+def phase_rng():
+    """The threefry kernel against its plain twin, bit for bit, in the four
+    forms of ``rng_forms`` at 65,536 lanes and at the ragged 1 and 65,537,
+    and the bounce and jitter forms at 262,144 and 1,048,576 lanes.  The
+    bounce and jitter forms are timed at each lane count beside an empty
+    launch (a one-element fill), and a line through the three times splits
+    a launch's fixed cost (the intercept) from its cost a lane (the slope).
+    Returns {form: (ms, plain ms, max abs error)} at 65,536 lanes and
+    {form: (intercept ms, slope ms a lane)}."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import rng
+
+    out, times = {}, {}
+    for n in RNG_RAGGED + RNG_LANES:
+        for name, (args, sb, pb) in rng_forms(n).items():
+            if n > N_RAYS and name not in ("bounce", "jitter"):
+                continue
+            k = kernels.uniforms(*args, sb, pb)
+            k2 = kernels.uniforms(*args, sb, pb)
+            p = rng.lane_uniforms_key_plain(*args, sb, pb)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(k.view(torch.int32), p.view(torch.int32)))
+            det = bool(torch.equal(k, k2))
+            row = {"form": name, "lanes": n, "draws": args[5], "bit_equal_to_twin": equal,
+                   "deterministic": det, "max_abs_err": float((k - p).abs().max())}
+            if not (equal and det):
+                emit("rng", **row)
+                raise AssertionError(f"the threefry kernel differs from its twin ({name}, {n})")
+            if n in RNG_LANES:
+                row["ms"] = queued_ms(lambda: kernels.uniforms(*args, sb, pb), 50)
+                times.setdefault(name, []).append(row["ms"])
+            if n == N_RAYS:
+                row["plain_ms"] = sync_ms(lambda: rng.lane_uniforms_key_plain(*args, sb, pb), 10)
+                out[name] = (row["ms"], row["plain_ms"], row["max_abs_err"])
+            emit("rng", **row)
+    one = torch.zeros(1, device=DEV)
+    fits = {name: fit_line(RNG_LANES, ms) for name, ms in times.items() if len(ms) > 1}
+    emit("rng_fit", lanes=RNG_LANES, empty_ms=queued_ms(one.zero_, 50),
+         **{f"{name}_ms": times[name] for name in fits},
+         **{f"{name}_intercept_ms": a for name, (a, _) in fits.items()},
+         **{f"{name}_ns_per_1k_lanes": b * 1e9 for name, (_, b) in fits.items()})
+    return out, fits
 
 
 def render_loop(scene, spp, config, loop, seed=0):
@@ -1724,7 +1786,7 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 def main():
     phase_device()
     phase_build()
-    rng_forms = phase_rng()
+    rng_times, rng_fits = phase_rng()
     from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
@@ -1851,7 +1913,7 @@ def main():
     rows = []
     for name, src, k, line in table:
         pairs, ops, n_bytes = work[k]
-        bound_ms, bound_by = bound(pairs, ops, n_bytes)
+        bound_ms, bound_by = bound({"fp32": (pairs * ops, 128)}, n_bytes)
         rows.append({
             "name": name, "route": "cuda", "source": f"tpu_pathtracer_torch/csrc/{src}",
             "replaces": f"tpu_pathtracer/ops/pallas_intersect.py:{line}",
@@ -1860,8 +1922,9 @@ def main():
             "share": bound_ms / times[k][0], "library_ms": None,
             "library_note": LIBRARY_NOTE[k],
             "work": {"pairs": pairs, "ops_per_pair": ops, "bytes": n_bytes}})
-    ms, plain_ms, int_ops, f32_ops, n_bytes, rng_err = rng_forms["bounce"]
-    bound_ms, bound_by = bound(f32_ops, 1, n_bytes, int32_ops=int_ops)
+    ms, plain_ms, rng_err = rng_times["bounce"]
+    pipes, n_bytes = rng_work(N_RAYS)
+    bound_ms, bound_by = bound(pipes, n_bytes)
     rows.append({
         "name": "threefry draws (not a TPU kernel)", "route": "cuda",
         "source": "tpu_pathtracer_torch/csrc/rng_kernels.cu",
@@ -1871,7 +1934,9 @@ def main():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "share": bound_ms / ms, "library_ms": None,
         "library_note": "none: no PyTorch call computes threefry-2x32 counter draws",
-        "work": {"int32_ops": int_ops, "f32_ops": f32_ops, "bytes": n_bytes}})
+        "launch_intercept_ms": rng_fits["bounce"][0],
+        "ns_per_1k_lanes": rng_fits["bounce"][1] * 1e9,
+        "work": {"ops_by_pipe": {k: v for k, (v, _) in pipes.items()}, "bytes": n_bytes}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

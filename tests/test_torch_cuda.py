@@ -65,6 +65,30 @@ def test_torch_threefry_kernel_equals_twin():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 65_537])
+@pytest.mark.parametrize("base_form", ["int", "tensor"])
+def test_torch_threefry_instances_equal_twin(lanes, base_form):
+    """Every instance of the threefry kernel (10, 4 and 2 draws) and the
+    generic one (1, 7 and 8 draws) against the twin, bit for bit, at one
+    lane and at a lane count no block shape divides, with the sample and
+    pixel bases as ints or as device scalars past 2^32."""
+    _needs_card()
+    from tpu_pathtracer_torch.ops import rng
+
+    g = torch.Generator().manual_seed(lanes)
+    slot, smp, dep = (torch.randint(0, hi, (lanes,), generator=g, dtype=torch.int32).cuda()
+                      for hi in (2**31 - 1, 70_000, 9))
+    sb, pb = 2**32 + 11, 2**33 + 5
+    if base_form == "tensor":
+        sb, pb = torch.tensor(sb, device="cuda"), torch.tensor(pb, device="cuda")
+    seed = torch.tensor(2**32 + 7, device="cuda")
+    for n_draws in (10, 4, 2, 1, 7, 8):
+        got = rng.lane_uniforms_key(0, seed, smp, dep, slot, n_draws, sb, pb)
+        want = rng.lane_uniforms_key_plain(0, seed, smp, dep, slot, n_draws, sb, pb)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n_draws
+
+
+@pytest.mark.cuda
 def test_torch_graph_loop_equals_eager(tmp_path):
     """The persistent engine's loop as a CUDA graph against the eager loop on
     the atrium (sort on, kernels B1 / B2): frames identical and measured

@@ -86,3 +86,51 @@ def test_torch_sobol_jitter_not_ported():
             np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     with pytest.raises(ValueError, match="unknown jitter"):
         trng.jitter_uniforms(0, 0, torch.from_numpy(pix), "sobl")
+
+
+# The render's split form: a per-lane carry plus the traced first sample and
+# first pixel as a base (an int past 2^31 or 2^32, or a 0-d tensor).
+SPLIT_BASES = {
+    "past_2_31": (2**31 + 11, 2**31 + 3),
+    "past_2_32": (2**32 + 5, 2**33 + 9),
+    "tensor": (torch.tensor(2**32 + 7), torch.tensor(-5, dtype=torch.int32)),
+}
+
+
+@pytest.mark.parametrize("n_draws", [1, 2, 7, 10])
+@pytest.mark.parametrize("bases", list(SPLIT_BASES))
+def test_torch_lane_uniforms_split_base_bit_equal(bases, n_draws):
+    """``lane_uniforms(..., sample_base, pixel_base)`` (how the persistent
+    loop passes its carries and traced scalars) equals the summed form and
+    the JAX package's ``lane_uniforms`` on the u32 sums, bit for bit."""
+    sb, pb = SPLIT_BASES[bases]
+    rs = np.random.default_rng(n_draws)
+    slot = rs.integers(0, 2**31 - 1, size=257).astype(np.int32)
+    sample = rs.integers(0, 5000, size=257).astype(np.int32)
+    depth = rs.integers(0, 9, size=257).astype(np.int32)
+    seed = 2**32 + 3
+    got = trng.lane_uniforms(seed, torch.from_numpy(sample), torch.from_numpy(depth),
+                             torch.from_numpy(slot), n_draws, sb, pb)
+    s_sum, p_sum = (torch.from_numpy(a).long() + int(b) for a, b in ((sample, sb), (slot, pb)))
+    summed = trng.lane_uniforms(seed, s_sum, torch.from_numpy(depth), p_sum, n_draws)
+    assert torch.equal(got.view(torch.int32), summed.view(torch.int32))
+    want = np.asarray(jrng.lane_uniforms(
+        jax.random.key(seed), jnp.asarray((s_sum.numpy() % 2**32).astype(np.uint32)),
+        jnp.asarray(depth), jnp.asarray((p_sum.numpy() % 2**32).astype(np.uint32)), n_draws))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "sobol"])
+def test_torch_jitter_uniforms_split_base_bit_equal(kind):
+    """The camera jitter in the split form equals the JAX package's jitter
+    at the summed sample and pixel (a 0-d tensor base past 2^32)."""
+    rs = np.random.default_rng(5)
+    slot = rs.integers(0, 4096, size=200).astype(np.int32)
+    sample = rs.integers(0, 64, size=200).astype(np.int32)
+    sb, pb = torch.tensor(2**32 + 9), torch.tensor(2**31 + 100)
+    got = trng.jitter_uniforms(7, torch.from_numpy(sample), torch.from_numpy(slot), kind, sb, pb)
+    s_sum = ((sample.astype(np.int64) + int(sb)) % 2**32).astype(np.uint32)
+    p_sum = ((slot.astype(np.int64) + int(pb)) % 2**32).astype(np.uint32)
+    want = np.asarray(jrng.jitter_uniforms(jax.random.key(7), jnp.asarray(s_sum),
+                                           jnp.asarray(p_sum), kind))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))

@@ -405,36 +405,46 @@ def ray_groups(rays, cmin, cmax, min_dst, group):
     return out
 
 
-def _stream_word(x, name: str, device, lanes: int):
-    """One input of the threefry stream as the kernel takes it: (int32 [R]
-    array or None, int64 device scalar or None, u32 constant).  A Python int
-    is a constant; a 0-d tensor is read on the device at run time, so a
-    captured launch follows its value; an [R] tensor is a per-lane array."""
-    if not isinstance(x, torch.Tensor):
-        return None, None, int(x) & 0xFFFFFFFF
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, want {device}")
-    if x.dim() == 0:
-        return None, x if x.dtype == torch.int64 else x.to(torch.int64), 0
-    if lanes is None or tuple(x.shape) != (lanes,) or x.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"{name}: want an int, a 0-d tensor or int [{lanes}], got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    return (x if x.dtype == torch.int32 else x.to(torch.int32)).contiguous(), None, 0
+def _stream_word(x, name: str, device, lanes, base=0):
+    """One input of the threefry stream, ``x + base``, as the kernel takes it:
+    (int32 [R] array or None, int64 device scalar or None, u32 constant).  A
+    Python int is a constant; a 0-d tensor is read on the device at run
+    time, so a captured launch follows its value; an [R] tensor is a
+    per-lane array (only ``x`` may be one).  Nothing is computed on the
+    device unless two 0-d tensors must be summed or a tensor cast."""
+    array, scalar, constant = None, None, 0
+    for v, per_lane in ((x, lanes is not None), (base, False)):
+        if not isinstance(v, torch.Tensor):
+            constant += int(v)
+            continue
+        if v.device != device:
+            raise ValueError(f"{name}: on {v.device}, want {device}")
+        if v.dim() == 0:
+            v = v if v.dtype == torch.int64 else v.to(torch.int64)
+            scalar = v if scalar is None else scalar + v
+        elif per_lane and tuple(v.shape) == (lanes,) and v.dtype in (torch.int32, torch.int64):
+            array = (v if v.dtype == torch.int32 else v.to(torch.int32)).contiguous()
+        else:
+            raise ValueError(f"{name}: want an int, a 0-d tensor" + (f" or int [{lanes}]" if
+                             per_lane else "") + f", got {v.dtype} {tuple(v.shape)}")
+    return array, scalar, constant & 0xFFFFFFFF
 
 
-def uniforms(k0, k1, sample, depth, pixel, n_draws: int):
+def uniforms(k0, k1, sample, depth, pixel, n_draws: int, sample_base=0, pixel_base=0):
     """Launch the threefry draws (contract: ``ops.rng.lane_uniforms_key_plain``):
-    [n_draws, R] float32 for the key words (k0, k1) and per-lane (sample,
-    depth, pixel).  Each input is a Python int, a 0-d integer tensor on the
-    card (read by the kernel) or, for sample, depth and pixel, an [R] integer
-    tensor (its low 32 bits)."""
+    [n_draws, R] float32 for the key words (k0, k1) and per-lane (sample +
+    sample_base, depth, pixel + pixel_base).  Each input is a Python int, a
+    0-d integer tensor on the card (read by the kernel) or, for sample,
+    depth and pixel, an [R] integer tensor (its low 32 bits); a base is an
+    int or a 0-d tensor."""
     dev = pixel.device
     if pixel.dim() != 1:
         raise ValueError(f"pixel: want [R], got {tuple(pixel.shape)}")
     r = pixel.shape[0]
-    words = [_stream_word(k0, "k0", dev, None), _stream_word(k1, "k1", dev, None)]
-    words += [_stream_word(v, n, dev, r) for n, v in (("sample", sample), ("depth", depth),
-                                                        ("pixel", pixel))]
+    words = [_stream_word(k0, "k0", dev, None), _stream_word(k1, "k1", dev, None),
+             _stream_word(sample, "sample", dev, r, sample_base),
+             _stream_word(depth, "depth", dev, r),
+             _stream_word(pixel, "pixel", dev, r, pixel_base)]
     out = torch.empty((n_draws, r), dtype=torch.float32, device=dev)
     (_, k0_s, k0_c), (_, k1_s, k1_c) = words[:2]
     lanes = []

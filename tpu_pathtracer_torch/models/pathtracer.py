@@ -83,13 +83,15 @@ def check_config(config: RenderConfig) -> None:
     check_tuning(config.tuning.resolve())
 
 
-def bounce_draws(seed, sample, depth, pixel: torch.Tensor,
-                 config: RenderConfig) -> torch.Tensor:
-    """[_DRAWS, R] per-bounce estimator draws.  ``lowdisc="sobol"`` replaces
-    the VNDF (2, 3) and light-point (8, 9) pairs by per-(pixel, depth)
-    Owen-scrambled Sobol points over the sample index."""
-    draws = lane_uniforms(seed, sample, depth, pixel, _DRAWS)
+def bounce_draws(seed, sample, depth, pixel: torch.Tensor, config: RenderConfig,
+                 sample_base=0, pixel_base=0) -> torch.Tensor:
+    """[_DRAWS, R] per-bounce estimator draws of the lanes (``sample +
+    sample_base``, ``depth``, ``pixel + pixel_base``).  ``lowdisc="sobol"``
+    replaces the VNDF (2, 3) and light-point (8, 9) pairs by per-(pixel,
+    depth) Owen-scrambled Sobol points over the sample index."""
+    draws = lane_uniforms(seed, sample, depth, pixel, _DRAWS, sample_base, pixel_base)
     if config.lowdisc == "sobol":
+        sample, pixel = sample + sample_base, pixel + pixel_base
         draws[2:4] = sobol_owen_pair(seed, sample, depth, pixel, SOBOL_TAG_VNDF)
         draws[8:10] = sobol_owen_pair(seed, sample, depth, pixel, SOBOL_TAG_LIGHT)
     elif config.lowdisc != "off":
@@ -417,9 +419,8 @@ class _PersistentLoop:
             w = torch.where(valid, work_ids, torch.zeros_like(work_ids))
             slot = (w % self.pool_pix).to(torch.int32)
             s = (w // self.pool_pix).to(torch.int32)
-            pids = self.chunk_start + slot
-            o, d = gen_rays(self.camera, pids, jitter_uniforms(
-                self.seed, self.sample_start + s, pids, self.config.jitter))
+            o, d = gen_rays(self.camera, self.chunk_start + slot, jitter_uniforms(
+                self.seed, s, slot, self.config.jitter, self.sample_start, self.chunk_start))
         return o, d, slot, s
 
     def start(self) -> dict:
@@ -459,8 +460,8 @@ class _PersistentLoop:
                     sample, depth, hint = sample[perm], depth[perm], hint[perm]
             n_bounce = c["n_bounce"] + alive.sum()
             with stage("draws"):
-                draws = bounce_draws(self.seed, self.sample_start + sample, depth,
-                                     self.chunk_start + slot, config)
+                draws = bounce_draws(self.seed, sample, depth, slot, config,
+                                     self.sample_start, self.chunk_start)
             with stage("shading"):
                 o, d, throughput, radiance, alive2, hint = bounce_step(
                     scene, config, o, d, throughput, radiance, alive, draws

@@ -14,8 +14,9 @@ explicit ``& 0xFFFFFFFF`` after every add and shift; the final
 camera jitter and ``per_pixel_uniforms``) runs the hand-written kernel of
 ``csrc/rng_kernels.cu`` on CUDA tensors and its plain twin
 ``lane_uniforms_key_plain`` on CPU tensors; the two are equal bit for bit.
-A seed or a key word may be a 0-d tensor: the kernel reads it on the
-device, so a captured render loop follows its value.
+A seed, a key word or the base of a sample or pixel index may be a 0-d
+tensor: the kernel reads it on the device, so a captured render loop
+follows its value.
 """
 
 from __future__ import annotations
@@ -84,6 +85,14 @@ def fold_in(k0: int, k1: int, n: int) -> Tuple[int, int]:
     return tf2x32(k0, k1, 0, n)
 
 
+def _plus(x: _Int, base: _Int) -> _Int:
+    """``x + base`` as the stream reads it (mod 2^32 after ``tf2x32``'s mask);
+    ``x`` itself when ``base`` is the int 0."""
+    if isinstance(base, int) and base == 0:
+        return x
+    return _u32(x) + _u32(base)
+
+
 def lane_uniforms_key_plain(
     k0: _Int,
     k1: _Int,
@@ -91,13 +100,15 @@ def lane_uniforms_key_plain(
     depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
     pixel: torch.Tensor,  # [R] linear pixel ids
     n_draws: int,
+    sample_base: _Int = 0,
+    pixel_base: _Int = 0,
 ) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
     """Plain twin of the threefry kernel (``lane_uniforms_key``'s contract)."""
     dev = pixel.device
-    a0, a1 = tf2x32(k0, k1, sample, depth)
+    a0, a1 = tf2x32(k0, k1, _plus(sample, sample_base), depth)
     # All ceil(n/2) counter blocks in one broadcast: [B, 1] block ids x [R].
     blocks = torch.arange((n_draws + 1) // 2, dtype=torch.int64, device=dev)
-    x0, x1 = tf2x32(a0, a1, pixel[None, :], blocks[:, None])
+    x0, x1 = tf2x32(a0, a1, _plus(pixel, pixel_base)[None, :], blocks[:, None])
     draws = torch.stack([_bits_to_unit(x0), _bits_to_unit(x1)], dim=1)
     return draws.reshape(-1, pixel.shape[0])[:n_draws]
 
@@ -109,19 +120,26 @@ def lane_uniforms_key(
     depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
     pixel: torch.Tensor,  # [R] linear pixel ids
     n_draws: int,
+    sample_base: _Int = 0,
+    pixel_base: _Int = 0,
 ) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
     """``lane_uniforms`` under the key words (k0, k1) instead of a seed: the
     JAX package's ``lane_uniforms(key, ...)`` for any key, folded ones
-    included.  The threefry kernel for a CUDA ``pixel``, the plain twin for a
+    included.  A key word is read for its low 32 bits.  The sample index of
+    a lane is ``sample + sample_base`` and its pixel ``pixel + pixel_base``
+    (each base an int or a 0-d tensor, mod 2^32): a render passes its
+    carries and its traced first sample and pixel apart, and the kernel adds
+    them.  The threefry kernel for a CUDA ``pixel``, the plain twin for a
     CPU one; it counts its kernel launches in ``launches``."""
     if pixel.is_cuda:
         from .. import kernels
 
-        out = kernels.uniforms(k0, k1, sample, depth, pixel, n_draws)
+        out = kernels.uniforms(k0, k1, sample, depth, pixel, n_draws, sample_base, pixel_base)
         lane_uniforms_key.launches += 1
         return out
     if pixel.device.type == "cpu":
-        return lane_uniforms_key_plain(k0, k1, sample, depth, pixel, n_draws)
+        return lane_uniforms_key_plain(k0, k1, sample, depth, pixel, n_draws, sample_base,
+                                       pixel_base)
     raise RuntimeError(f"lane_uniforms_key: no kernel for device {pixel.device}")
 
 
@@ -134,10 +152,14 @@ def lane_uniforms(
     depth: _Int,  # scalar or [R] bounce index (or JITTER_DEPTH)
     pixel: torch.Tensor,  # [R] linear pixel ids
     n_draws: int,
+    sample_base: _Int = 0,
+    pixel_base: _Int = 0,
 ) -> torch.Tensor:  # [n_draws, R] f32 in [0, 1)
     """U[0,1) draws keyed per (pixel, sample, depth) lane.  Scalar or per-lane
-    (sample, depth) give the same stream, as in the JAX package."""
-    return lane_uniforms_key(*key_words(seed), sample, depth, pixel, n_draws)
+    (sample, depth) give the same stream, as in the JAX package.  The key
+    words are ``key_words(seed)``; the seed goes in unmasked, since the
+    stream reads a key word's low 32 bits (a tensor seed costs no mask)."""
+    return lane_uniforms_key(0, seed, sample, depth, pixel, n_draws, sample_base, pixel_base)
 
 
 def per_pixel_uniforms(k0: int, k1: int, pixel_ids: torch.Tensor, n_draws: int) -> torch.Tensor:
@@ -226,12 +248,14 @@ def sobol_owen_pair(seed: _Int, sample: _Int, depth: _Int, pixel: torch.Tensor,
 
 
 def jitter_uniforms(
-    seed: _Int, sample: _Int, pixel: torch.Tensor, kind: str = "uniform"
+    seed: _Int, sample: _Int, pixel: torch.Tensor, kind: str = "uniform",
+    sample_base: _Int = 0, pixel_base: _Int = 0,
 ) -> torch.Tensor:  # [2, R]
-    """Camera-jitter draws: the JITTER_DEPTH lane stream ("uniform") or the
+    """Camera-jitter draws of lane (``sample + sample_base``, ``pixel +
+    pixel_base``): the JITTER_DEPTH lane stream ("uniform") or the
     Owen-scrambled Sobol point ("sobol")."""
     if kind == "sobol":
-        return sobol_owen_2d(seed, sample, pixel)
+        return sobol_owen_2d(seed, _plus(sample, sample_base), _plus(pixel, pixel_base))
     if kind != "uniform":
         raise ValueError(f"unknown jitter kind {kind!r}: expected uniform | sobol")
-    return lane_uniforms(seed, sample, JITTER_DEPTH, pixel, 2)
+    return lane_uniforms(seed, sample, JITTER_DEPTH, pixel, 2, sample_base, pixel_base)

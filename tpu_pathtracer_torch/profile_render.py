@@ -3,11 +3,12 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 -m tpu_pathtracer_torch.profile_render
+    python3 -m tpu_pathtracer_torch.profile_render [case ...]
 
-Each case is a scene made by ``scene/fixtures.py`` as ``chip_smoke.py``
-makes it, rendered at 512x512 by ``models.pathtracer.render`` after one
-warm-up render at 1 spp with each loop:
+(every case of ``CASES`` and ``KERNEL_CASES`` when none is named).  Each
+case is a scene made by ``scene/fixtures.py`` as ``chip_smoke.py`` makes
+it, rendered at 512x512 by ``models.pathtracer.render`` after one warm-up
+render at 1 spp with each loop.  A case of ``CASES``:
 
 - timed: at 16 spp with the persistent engine's per-iteration "eager" loop
   and its CUDA graph, in turns (eager, graph, graph, eager): seconds,
@@ -22,8 +23,15 @@ warm-up render at 1 spp with each loop:
   memory-operation times: the render runs on one stream) of the eager and
   the graph loop at 4 spp under ``torch.profiler``, against the timed
   renders' ms per iteration; the kernels that take the most device time;
-  and the activity kernel (B1) and the intersector's Woop kernel (B2 or B6)
-  by their place among an iteration's launches.
+  and each hand-written kernel by its place among an iteration's launches;
+- in_graph: each hand-written kernel's launches per iteration and mean
+  device microseconds per launch inside the graph's replays (the graph
+  profile above).
+
+A case of ``KERNEL_CASES`` (the atrium under the sort key or intersector
+mode whose kernel no case above runs: B4 "target", B5 "dense", B7 "bins")
+only profiles its loop at 4 spp for ``in_graph`` ("bins" keeps the eager
+loop, so its figures are per launch in that loop).
 
 Prints one JSON line per case, then the card's ``nvidia-smi`` name, power
 limit, SM clock and power draw.
@@ -35,6 +43,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -43,6 +52,13 @@ import torch
 W = H = 512
 SPP, PROFILE_SPP = 16, 4
 CASES = ("atrium", "atrium_twopass", "lit_atrium", "env_field")
+KERNEL_CASES = ("atrium_target", "atrium_dense", "atrium_bins")
+# The hand-written kernels, by the name their launches carry on the device.
+KERNELS = {
+    "activity_kernel": "B1", "items_kernel": "B2", "light_pdf_kernel": "B3",
+    "nearest_kernel": "B4", "dense_kernel": "B5", "slots_kernel": "B6",
+    "ray_group_kernel": "B7", "uniforms_kernel": "threefry",
+}
 # Stage ranges of the loop (utils.profiling.stage) -> the row they fill.
 STAGES = {
     "sort": "sort + carry permutation",
@@ -72,11 +88,14 @@ def _scene_and_config(case, tmp):
     except ImportError:
         textured = False
     config = RenderConfig()
-    if case in ("atrium", "atrium_twopass"):
+    modes = {"atrium_twopass": RenderConfig(tuning=IntersectTuning(mode="twopass")),
+             "atrium_target": RenderConfig(sort_key="target"),
+             "atrium_dense": RenderConfig(tuning=IntersectTuning(mode="dense")),
+             "atrium_bins": RenderConfig(tuning=IntersectTuning(mode="bins"))}
+    if case == "atrium" or case in modes:
         path = fixtures.make_atrium_gltf(os.path.join(tmp, case, "a.gltf"), detail=2,
                                          textured=textured)
-        if case == "atrium_twopass":
-            config = RenderConfig(tuning=IntersectTuning(mode="twopass"))
+        config = modes.get(case, config)
     elif case == "lit_atrium":
         path = fixtures.make_lit_banner_atrium_gltf(os.path.join(tmp, case, "a.gltf"), detail=2,
                                                     textured=textured)
@@ -86,7 +105,8 @@ def _scene_and_config(case, tmp):
         env = fixtures.make_env_hdr(os.path.join(tmp, case, "env.hdr"))
         config = RenderConfig(use_env_map=True, env_map_path=env, add_light_triangle=True)
     else:
-        raise ValueError(f"unknown case {case!r}: expected one of {', '.join(CASES)}")
+        raise ValueError(f"unknown case {case!r}: expected one of "
+                         f"{', '.join(CASES + KERNEL_CASES)}")
     scene = gltf.parse_gltf_scene(path, W / H, config)
     scene = dataclasses.replace(scene, camera=scene.camera.with_dims(W, H)).to("cuda")
     return scene, config, textured
@@ -173,14 +193,15 @@ def _stage_split(prof, iterations):
 
 
 def _per_pass(prof, iterations):
-    """Mean device ms of B1 (``activity_kernel``) and of the intersector's
-    Woop kernel (B2 ``items_kernel`` or B6 ``slots_kernel``) by their place
-    among an iteration's launches.  With the default ladder the Woop kernel
-    runs near pass 1, near pass 2 and the residual; B1 runs the super-block
-    gate, the initial pass and the recheck after each near pass (then the
-    light clusters' boxes on a many-light scene)."""
+    """Mean device ms of each hand-written kernel by its place among an
+    iteration's launches.  With the default ladder the Woop kernel (B2 or
+    B6) runs near pass 1, near pass 2 and the residual; B1 runs the
+    super-block gate, the initial pass and the recheck after each near pass
+    (then the light clusters' boxes on a many-light scene); the threefry
+    kernel runs the bounce draws, then the jitter of the lanes it
+    regenerates."""
     out = {}
-    for key in ("activity_kernel", "items_kernel", "slots_kernel"):
+    for key in KERNELS:
         evs = sorted((e for e in prof.events()
                       if key in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")),
                      key=lambda e: e.time_range.start)
@@ -189,6 +210,22 @@ def _per_pass(prof, iterations):
             ms = [e.time_range.elapsed_us() / 1e3 for e in evs]
             out[key] = [sum(ms[k::m]) / iterations for k in range(m)]
     return out
+
+
+def _in_graph(dev, iterations):
+    """{kernel: launches per iteration, mean device us per launch} of each
+    hand-written kernel in a profile's ``_device_times``, a template
+    instance apart from the others (the threefry kernel's ``<10>`` bounce
+    draws and ``<2>`` camera jitter)."""
+    out = {}
+    for key, label in KERNELS.items():
+        for name, (ms, n) in sorted(dev.items()):
+            if key in name:
+                instance = name.split(key, 1)[1].split("(", 1)[0]
+                row = out.setdefault(f"{label} {key}{instance}", [0.0, 0])
+                row[0], row[1] = row[0] + ms, row[1] + n
+    return {k: {"launches_per_iteration": n / iterations, "us_per_launch": ms * 1e3 / n}
+            for k, (ms, n) in out.items()}
 
 
 def _profiled(scene, config, spp, loop, stages=False):
@@ -248,6 +285,9 @@ def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
         if loop == "eager":
             top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:12]
             by_pass = _per_pass(prof, iterations)
+        else:
+            in_graph = _in_graph(dev, iterations)
+            graph_by_pass = _per_pass(prof, iterations)
     eager_busy = busy["eager"]["busy_ms_per_iteration"]
     return {
         "case": case, "textured": textured, "spp": spp, "useful_iterations": useful,
@@ -257,13 +297,27 @@ def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
         "stages": stages,
         "busy": busy,
         "kernel_ms_by_pass": by_pass,
+        "in_graph": in_graph,
+        "kernel_ms_by_pass_in_graph": graph_by_pass,
         "top": [{"name": k[:120], "ms_per_iteration": ms / busy["eager"]["iterations"],
                  "share_of_busy": ms / (eager_busy * busy["eager"]["iterations"]),
                  "count": c, "ms_per_call": ms / c} for k, (ms, c) in top],
     }
 
 
-def main():
+def kernel_case(case, tmp, profile_spp=PROFILE_SPP):
+    """``in_graph`` alone: the case's loop (the graph, or the eager loop
+    under "bins") profiled at ``profile_spp`` after a warm-up."""
+    scene, config, textured = _scene_and_config(case, tmp)
+    loop = "eager" if config.tuning.mode == "bins" else "graph"
+    _render(scene, config, 1, loop)
+    prof, seconds, iterations = _profiled(scene, config, profile_spp, loop)
+    return {"case": case, "textured": textured, "loop": loop, "spp": profile_spp,
+            "iterations": iterations, "seconds": seconds,
+            "in_graph": _in_graph(_device_times(prof), iterations)}
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     from .cli import select_device
@@ -273,8 +327,9 @@ def main():
     select_device()
     build()
     with tempfile.TemporaryDirectory() as tmp:
-        for case in CASES:
-            print(json.dumps(profile_case(case, tmp)), flush=True)
+        for case in argv or CASES + KERNEL_CASES:
+            run = kernel_case if case in KERNEL_CASES else profile_case
+            print(json.dumps(run(case, tmp)), flush=True)
             clear_compiled_loops()
             torch.cuda.empty_cache()
     print(subprocess.run(
@@ -283,4 +338,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
