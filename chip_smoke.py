@@ -74,8 +74,11 @@ the card) against the per-iteration eager loop:
 
 checks the Cornell goldens (plain, environment map PNG and HDR, light
 triangle, Sobol bounce draws, Sobol jitter) at 64x64 @ 64 spp and, in phase
-goldens_more, the textured Cornell at 64x64 and the plain one at 96x64; and
-renders the homebrew ``.txt`` scenes (no kernel: plain torch):
+goldens_more, the textured Cornell at 64x64 and the plain one at 96x64;
+runs the benchmark (``python3 -m tpu_pathtracer_torch.bench``'s ``main``)
+at 256x256 @ 4 spp with 3 repeats of the atrium and the field in turns
+(phase bench, last); and renders the homebrew ``.txt`` scenes (no kernel:
+plain torch):
 
   homebrew         a Whitted scene at RAY_DEPTH 8 and a Monte-Carlo scene,
                    card against CPU at 64x48, then timed at 640x480 (the
@@ -99,8 +102,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import torch
+
+from tpu_pathtracer_torch.utils.profiling import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W = H = 512
@@ -198,13 +204,6 @@ def bound(pipes, n_bytes):
     t_ops = max(ops / (sms * per_clock * CLOCK_HZ) for ops, per_clock in pipes.values()) * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def phase_device():
@@ -1161,6 +1160,41 @@ def phase_cli_txt(tmp):
     return rows
 
 
+BENCH_ENV = {"BENCH_SIZE": "256", "BENCH_SPP": "4", "BENCH_REPS": "3"}
+
+
+def phase_bench():
+    """``tpu_pathtracer_torch.bench``'s ``main`` in this process at 256x256 @
+    4 spp with 3 repeats (atrium and field in turns): exit 0 (its gate:
+    every timed frame bit-identical to the first, measured rays equal),
+    ``bench.py``'s keys and the card's, the graph loop, and the device
+    fields measured."""
+    from tpu_pathtracer_torch import bench
+    from tpu_pathtracer_torch.models.pathtracer import clear_compiled_loops
+
+    clear_compiled_loops()  # the earlier phases' graphs: the bench measures its own memory
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with mock.patch.dict(os.environ, BENCH_ENV), contextlib.redirect_stdout(out):
+        code = bench.main()
+    lines = out.getvalue().strip().splitlines()
+    for text in lines[:-1]:  # the profiled render's top device operations
+        print(text, flush=True)
+    line = json.loads(lines[-1]) if lines else {}
+    emit("bench", rc=code, **line)
+    keys = {"metric", "value", "unit", "vs_baseline", "pixel_samples_per_s",
+            "mrays_depth8_upper_bound", "measured_rays", "timing", "rep_times_s",
+            "field_open_scene_samples_per_s", "card", "reps", "render_s_median",
+            "render_s_spread", "iterations", "loop", "device_busy_ms_per_iteration",
+            "device_busy_share", "peak_allocated_bytes", "reserved_bytes"}
+    if code != 0 or set(line) != keys or line["loop"] != "graph" \
+            or line["timing"] != "median_of_3_alternating" \
+            or any(line[k] is None for k in keys):
+        raise AssertionError(f"bench: rc {code}, line {line}")
+    clear_compiled_loops()
+    torch.cuda.empty_cache()
+
+
 def phase_renderer(path):
     """A ``Renderer`` on the atrium, two ``look_at`` frames at 512x512 @ 16
     spp, each with the launch counters set to 0 just before and read just
@@ -1890,6 +1924,7 @@ def main():
                      golden="textured_64x64_4096spp.ppm")
         phase_golden(tmp, phase="goldens_more", golden="cornell_96x64_4096spp.ppm",
                      size=(96, 64))
+    phase_bench()
 
     # Each kernel's launches on its own path: B1/B2 the main render, B3 the
     # lit-banner render, B4 the "target" key, B5 the "dense" render, B6 the

@@ -157,3 +157,35 @@ def test_torch_graph_loop_alternates_chunk_widths(tmp_path):
         assert got_stats["measured_rays"] == want_stats["measured_rays"]
     assert CapturedBlock.captures == captures + 2
     pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+def test_torch_graph_cache_sees_in_place_edit(tmp_path):
+    """A cached graph after an in-place write to a scene tensor: half the
+    atrium's chunks are emptied (their Woop blocks set to NaN) between two
+    graphed renders, and the second render equals an eager render of the
+    edited scene, not the first render (a graph reads the copies derived
+    from the scene's tensors when it was captured, which the write makes
+    stale)."""
+    _needs_card()
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    path = fixtures.make_atrium_gltf(str(tmp_path / "a.gltf"), detail=1, textured=False)
+    scene = parse_gltf_scene(path, 1.0)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(96, 96)).to("cuda")
+    pt.clear_compiled_loops()
+    stats = {}
+    before = pt.render(scene, spp=2, seed=1, stats=stats)
+    assert stats["loop"] == "graph"
+    scene.chunk_woop[::2] = float("nan")
+    got = pt.render(scene, spp=2, seed=1)
+    want = pt.render(scene, spp=2, seed=1, eager=True)
+    assert not np.array_equal(want, before)
+    assert np.array_equal(got, want)
+    pt.clear_compiled_loops()

@@ -194,6 +194,35 @@ def test_torch_compiled_loop_buffers_serve_every_call(tmp_path, capsys):
     pt.clear_compiled_loops()
 
 
+def test_torch_compiled_loop_key_follows_in_place_writes(tmp_path):
+    """The compiled loop's cache key changes after an in-place write to any
+    of the scene's tensors (a CUDA graph captured before it would read the
+    stale copies ``kernels.made_once`` derived), and not after a write to
+    the camera's, which every call copies in; a render after the write
+    equals the eager loop's and runs in a loop of its own."""
+    pt.clear_compiled_loops()
+    scene, config, _ = _case("cornell", tmp_path)
+    args = (config, 256, 256, pt.LOOP_ITERATIONS)
+    key = pt._static_key(scene, *args)[0]
+    assert pt._static_key(scene, *args)[0] == key
+    scene.camera.position.add_(0.1)
+    assert pt._static_key(scene, *args)[0] == key
+    for name in ("chunk_woop", "chunk_aabb_min", "shade_attrs"):
+        getattr(scene, name).mul_(1.0)
+        assert pt._static_key(scene, *args)[0] != key, name
+        key = pt._static_key(scene, *args)[0]
+    before = pt.render(scene, spp=1, seed=3, config=config)
+    scene.bg_color.add_(0.5)
+    want_stats, got_stats = {}, {}
+    want = pt.render(scene, spp=1, seed=3, config=config, stats=want_stats, eager=True)
+    got = pt.render(scene, spp=1, seed=3, config=config, stats=got_stats)
+    assert not np.array_equal(want, before)
+    assert np.array_equal(got, want)
+    assert got_stats == {**want_stats, "loop": "graph"}
+    assert len(pt._GRAPHS) == 2
+    pt.clear_compiled_loops()
+
+
 @pytest.mark.parametrize("seed", [0, 7, 2**31 + 5])
 def test_torch_tensor_key_threefry_equals_jax(seed):
     """``lane_uniforms`` with the seed as a 0-d tensor (how the compiled

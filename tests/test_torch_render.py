@@ -115,6 +115,22 @@ def test_torch_cli_errors_match_jax(tmp_path, capsys, monkeypatch):
         assert capsys.readouterr().err == want
 
 
+@pytest.mark.parametrize("width", [0, -4])
+def test_torch_cli_rejects_illegal_image_size(width, tmp_path, capsys, monkeypatch):
+    """A width of 0 or below: the CLI prints the message of the reference's
+    ``Image`` constructor, "Illegal image size<W>x<H>" (src/image.h:25-29),
+    and exits 1 with no image written; ``render_scene_file`` raises
+    ``ValueError`` with that message."""
+    monkeypatch.setenv("TPU_PATHTRACER_TORCH_DEVICE", "cpu")
+    path = make_cornell_gltf(str(tmp_path / "c.gltf"))
+    out = tmp_path / "o.ppm"
+    assert cli.main(["prog", path, str(width), "8", "1", str(out)]) == 1
+    assert capsys.readouterr().err == f"Illegal image size{width}x8\n"
+    assert not out.exists()
+    with pytest.raises(ValueError, match=f"^Illegal image size{width}x8$"):
+        cli.render_scene_file(path, width, 8, 1, device=torch.device("cpu"))
+
+
 _WHITTED_TXT = """DIMENSIONS 8 8
 RAY_DEPTH 3
 BG_COLOR 0.1 0.2 0.4

@@ -1,6 +1,6 @@
 """The port's embedding API (``Renderer``, the package exports) and its
-profiling hooks (``PhaseTimer``, ``device_trace``), on the CPU: the
-counterpart of ``tests/test_renderer_api.py``."""
+profiling hooks (``PhaseTimer``, ``device_trace``, ``card_line``), on the
+CPU: the counterpart of ``tests/test_renderer_api.py``."""
 
 import dataclasses
 import json
@@ -19,6 +19,7 @@ from tpu_pathtracer_torch.renderer import Renderer
 from tpu_pathtracer_torch.scene import fixtures
 from tpu_pathtracer_torch.scene import types as T
 from tpu_pathtracer_torch.utils.image import read_ppm
+from tpu_pathtracer_torch.utils import profiling
 from tpu_pathtracer_torch.utils.profiling import PhaseTimer, device_trace
 
 torch.set_num_threads(1)
@@ -166,3 +167,22 @@ def test_torch_phase_timer_and_trace(tmp_path, capsys):
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert sum(e.get("name") == "tpt_region" for e in events) == 2
+
+
+def test_torch_card_line_reads_the_first_card(monkeypatch):
+    """``card_line`` asks ``nvidia-smi`` for the fields in CSV without a
+    header and gives the first card's line (what the bench, the profile and
+    the smoke test print beside their numbers)."""
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append((cmd, kw))
+        return subprocess.CompletedProcess(cmd, 0, stdout=" H100 A, 700.00 W\nH100 B, 500.00 W\n")
+
+    monkeypatch.setattr(profiling.subprocess, "run", run)
+    assert profiling.card_line() == "H100 A, 700.00 W"
+    assert profiling.card_line(("name", "clocks.sm")) == "H100 A, 700.00 W"
+    assert [cmd for cmd, _ in calls] == [
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=name,clocks.sm", "--format=csv,noheader"]]
+    assert all(kw["check"] for _, kw in calls)

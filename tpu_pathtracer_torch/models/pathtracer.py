@@ -513,9 +513,12 @@ def _static_key(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: i
                 iterations: int):
     """(cache key, the scene's tensors) of a compiled loop: the JAX
     package's static arguments (lane count, config, accumulator rows) with
-    the scene as the identity of its tensors and its plain fields, the
-    camera's pixel size and the iteration count; the camera's tensors are
-    copied in at every call instead."""
+    the scene as the identity and version of its tensors and its plain
+    fields, the camera's pixel size and the iteration count; the camera's
+    tensors are copied in at every call instead.  The version counts the
+    in-place writes to a tensor: a graph reads the copies ``made_once``
+    derived from the scene's tensors when it was captured, which such a
+    write makes stale."""
     tensors, plain = [], []
 
     def walk(obj, prefix):
@@ -532,8 +535,8 @@ def _static_key(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: i
 
     walk(scene, "")
     config = dataclasses.replace(config, tuning=config.tuning.resolve())
-    key = (str(scene.device), tuple(id(t) for t in tensors), tuple(plain), config, n_rays, rows,
-           iterations)
+    key = (str(scene.device), tuple((id(t), t._version) for t in tensors), tuple(plain), config,
+           n_rays, rows, iterations)
     return key, tensors
 
 

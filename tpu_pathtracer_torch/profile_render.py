@@ -42,7 +42,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -323,6 +322,7 @@ def main(argv=()):
     from .cli import select_device
     from .kernels import build
     from .models.pathtracer import clear_compiled_loops
+    from .utils.profiling import card_line
 
     select_device()
     build()
@@ -332,9 +332,7 @@ def main(argv=()):
             print(json.dumps(run(case, tmp)), flush=True)
             clear_compiled_loops()
             torch.cuda.empty_cache()
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(card_line(("name", "power.limit", "clocks.sm", "power.draw")), flush=True)
 
 
 if __name__ == "__main__":

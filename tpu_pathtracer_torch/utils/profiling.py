@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import sys
 import time
 from typing import Dict, Iterator, Optional
@@ -39,6 +40,15 @@ def stage(name: str):
     render loop while ``label_stages`` is on, else a context that does
     nothing (a flag test: the loop pays no profiler call)."""
     return torch.profiler.record_function(name) if _LABELS[0] else _NULL
+
+
+def card_line(fields=("name", "power.limit")) -> str:
+    """The first card's ``fields``, as ``nvidia-smi --query-gpu=<fields>
+    --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager
