@@ -37,7 +37,9 @@ just before and read just after:
                    "dense" (B5) and the cheap rechecks at 4 spp beside an
                    "items" render at 4 spp;
   engine           the atrium through the scan engine with Sobol jitter and
-                   bounce draws at 4 spp;
+                   bounce draws at 4 spp; then eager, graph, graph, eager
+                   (frames bit-identical), ms per wavefront bounce and each
+                   loop's device busy share;
   renderer         two ``look_at`` frames of the atrium through ``Renderer``
                    (no re-upload of the scene, no kernel rebuild);
   checkpoint       the atrium through ``render_with_checkpoints``: 8 spp in
@@ -46,8 +48,9 @@ just before and read just after:
                    accumulation, timed beside ``index_add_`` (accumulate);
   sharded          in a world-size-1 NCCL process group, the atrium through
                    ``render_sharded`` on a 1x1 mesh (measured rays equal to
-                   the main render's) and ``render_multihost`` with a
-                   checkpoint;
+                   the main render's), ``render_multihost`` with a
+                   checkpoint, and ``render_sharded`` with the scan engine
+                   (frame bit-identical to phase engine's);
 
 and, with the persistent engine's loop as one CUDA graph (the default on
 the card) against the per-iteration eager loop:
@@ -81,15 +84,20 @@ at 256x256 @ 4 spp with 3 repeats of the atrium and the field in turns
 plain torch):
 
   homebrew         a Whitted scene at RAY_DEPTH 8 and a Monte-Carlo scene,
-                   card against CPU at 64x48, then timed at 640x480 (the
-                   Monte-Carlo one at 64 spp);
+                   card against CPU at 64x48, then at 640x480 (the
+                   Monte-Carlo one at 64 spp) eager, graph, graph, eager
+                   (frames bit-identical), ms per stack iteration or bounce,
+                   each loop's device busy share, and the Whitted graph's
+                   iterations per host read K at 4, 8, 16 in turns;
   cli_txt          both through ``python -m tpu_pathtracer_torch`` at
                    160x120 in a process of their own.
 
 Every phase prints one JSON line; any failure raises, so the script exits
-non-zero without the final line.  The last two lines before the final one
-are the kernel table and the card's ``nvidia-smi`` name and power limit; the
-final line is ``{"ok": true, "device": {...}}``.
+non-zero without the final line.  ``python3 chip_smoke.py engine homebrew
+sharded`` (any of the three) runs only those phases after the build.  The
+last two lines before the final one are the kernel table and the card's
+``nvidia-smi`` name and power limit; the final line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -862,19 +870,152 @@ def phase_modes_render(path, tmp, main_row):
     return rows
 
 
+def bits_identical(a, b):
+    """Two float32 frames equal bit for bit (compared as uint32)."""
+    import numpy as np
+
+    a, b = (np.ascontiguousarray(x, dtype=np.float32) for x in (a, b))
+    return a.shape == b.shape and bool(np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+def profiled_busy_ms(fn):
+    """(device busy ms, kernels seen) of ``fn()`` under ``torch.profiler``:
+    the sum of its kernel and memory operation times (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.profile_render import _device_times
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = _device_times(prof)
+    return sum(ms for ms, _ in dev.values()), len(dev)
+
+
+def loops_in_turns(phase, label, render, order, unit):
+    """``render(eager)`` -> (HDR frame, ``unit``s run) once per loop of
+    ``order``, the launch and graph counters set to 0 just before and read
+    just after.  Fails unless every frame is finite and bit-identical (as
+    uint32) to the first eager frame, the graph ran (a capture or replays)
+    and the eager loop captured and replayed nothing.  Returns {loop:
+    [rows]}."""
+    import numpy as np
+
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+
+    rows = {}
+    for loop in order:
+        reset_launches()
+        r0, c0 = CapturedBlock.replays, CapturedBlock.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, units = render(loop == "eager")
+        secs = time.perf_counter() - t0
+        rows.setdefault(loop, []).append(dict(
+            img=img, seconds=secs, units=units, launches=read_launches(),
+            replays=CapturedBlock.replays - r0, captures=CapturedBlock.captures - c0))
+    want = rows["eager"][0]["img"]
+    for loop, runs in rows.items():
+        for row in runs:
+            same = bits_identical(row["img"], want)
+            ran = row["replays"] + row["captures"]
+            emit(phase, scene=label, loop=loop, seconds_render=row["seconds"],
+                 **{f"{unit}s": row["units"],
+                    f"ms_per_{unit}": row["seconds"] * 1e3 / max(row["units"], 1)},
+                 graph_replays=row["replays"], graph_captures=row["captures"],
+                 identical_to_eager=same, hdr_finite=bool(np.isfinite(row["img"]).all()),
+                 **{f"launches_{k}": v for k, v in row["launches"].items() if v})
+            if not same or not np.isfinite(row["img"]).all() \
+                    or (loop == "graph") != (ran > 0):
+                raise AssertionError(f"{phase}: {label} {loop} differs from eager or ran "
+                                     f"the wrong loop ({ran} graph runs)")
+    return rows
+
+
+def busy_share(phase, label, rows, unit, busy, replay):
+    """Print each loop's device busy ms per ``unit`` (``busy[loop]`` = (busy
+    ms, ``unit``s, kernels seen) of one profiled render) against the timed
+    renders' ms per ``unit``: the share of the wall the device is busy;
+    beside ``replay_cost``'s figures."""
+    out = {}
+    for loop, (ms, units, kernels) in busy.items():
+        timed = sum(r["seconds"] for r in rows[loop]) * 1e3 / sum(r["units"] for r in rows[loop])
+        per = ms / units if kernels else None  # no kernel seen: not measured
+        out[loop] = {f"busy_ms_per_{unit}": per, f"timed_ms_per_{unit}": timed,
+                     "busy_share": per / timed if per is not None else None,
+                     "profiled_busy_ms": ms, f"profiled_{unit}s": units, "kernels_seen": kernels}
+    emit(phase + "_summary", scene=label, **out, **replay, nvidia_smi=card_line())
+    return out
+
+
+def replay_cost(engine):
+    """Host ms that ``graph.replay()`` of the newest cached ``engine`` body's
+    graph takes to return (to launch it) and ms until the card has run it,
+    over three replays one at a time (the replays rerun the last call's
+    work on its buffers; no counter moves)."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    graph = next(e["block"].graph for k, e in reversed(pt._GRAPHS.items()) if k[4] == engine)
+    launch, total = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch.append((t1 - t0) * 1e3)
+        total.append((time.perf_counter() - t0) * 1e3)
+    return {"replay_launch_host_ms": launch, "replay_total_ms": total}
+
+
 def phase_engine(path, tmp):
     """The scan engine with Sobol jitter and bounce draws: the atrium at
-    512x512 @ 4 spp (measured rays are not counted by the scan engine), and
-    the Cornell golden with lowdisc="sobol" and with jitter="sobol"."""
+    512x512 @ 4 spp through the CLI's ``render_scene_file`` (measured rays
+    are not counted by the scan engine); then the same render eager, graph,
+    graph, eager (frames bit-identical, ms per wavefront bounce) and the
+    device's busy share of each loop under ``torch.profiler`` (one 256x256
+    chunk at 1 spp), and the host's cost of launching the graph; then the
+    Cornell golden with lowdisc="sobol" and with jitter="sobol".  Returns
+    the scan frame."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig
 
+    t_phase = time.perf_counter()
     config = RenderConfig(compaction=False, jitter="sobol", lowdisc="sobol")
     row = phase_render("engine", "atrium 512x512@4spp scan engine, Sobol", path, tmp,
-                       ("b1", "b2"), config=config, spp=4)
+                       ("b1", "b2", "rng"), config=config, spp=4)
     if row["measured_rays"] is not None:
         raise AssertionError("the scan engine reported measured rays")
+    scene = load_atrium(path)
+
+    def scan(eager, spp=4, s=scene):
+        pt.scan_accum.bounces = 0
+        img = pt.render(s, spp=spp, seed=0, config=config, eager=eager)
+        return img, pt.scan_accum.bounces
+
+    label = "atrium 512x512@4spp scan engine, Sobol"
+    pt.render(scene, spp=1, seed=1, config=config)  # captures the graph before the turns
+    rows = loops_in_turns("engine_loops", label, scan, ("eager", "graph", "graph", "eager"),
+                          "bounce")
+    if not bits_identical(rows["graph"][0]["img"], row["hdr"]):
+        raise AssertionError("engine: the CLI's scan frame differs from render's")
+    # Profiled on one chunk (256x256 pixels, one 65,536-lane wavefront) at 1
+    # spp: the profiler's cost grows with its events.
+    crop = dataclasses.replace(scene, camera=scene.camera.with_dims(256, 256))
+    scan(False, 1, crop)  # captures its graph outside the profile
+    busy = {}
+    for loop in ("eager", "graph"):
+        box = {}
+        ms, kernels = profiled_busy_ms(lambda: box.update(n=scan(loop == "eager", 1, crop)[1]))
+        busy[loop] = (ms, box["n"], kernels)
+    busy_share("engine_loops", label, rows, "bounce", busy, replay_cost("scan"))
     phase_golden(tmp, RenderConfig(lowdisc="sobol"), phase="engine_golden")
     phase_golden(tmp, RenderConfig(jitter="sobol"), phase="engine_golden")
+    del scene
+    pt.clear_compiled_loops()
+    emit("engine_done", phase_seconds=time.perf_counter() - t_phase)
+    return {"hdr": rows["graph"][0]["img"], "config": config, "spp": 4}
 
 
 def phase_b4(scene, rays_sets):
@@ -1087,22 +1228,37 @@ def write_homebrew(tmp):
     return paths
 
 
+# The Whitted graph's stack iterations per host read tried in turns.
+WHITTED_K_TURNS = (4, 8, 16, 16, 8, 4)
+
+
 def phase_homebrew(tmp):
     """Each homebrew scene rendered by the port on the card and on the CPU
     at 64x48 (the Monte-Carlo scene at 8 spp) must agree to the render
     tests' u8 rule (``fp_noise``: the card's elementwise kernels may round
     a product in another order, which can flip a Russian-roulette coin);
-    then each is timed on the card at 640x480, the Monte-Carlo scene at 64
-    spp, beside the card's name and power limit."""
+    then each at 640x480 (the Monte-Carlo scene at 64 spp), after a graphed
+    warm-up, eager, graph, graph, eager (Monte-Carlo: graph, eager, graph):
+    the frames bit-identical, ms per Whitted stack iteration or Monte-Carlo
+    bounce, each loop's device busy share under ``torch.profiler`` (one
+    256x256 chunk, the Monte-Carlo scene at 1 spp) and the host's cost of
+    launching each graph; the Whitted graph's iterations per host read K also at 4,
+    8, 16, 16, 8, 4 in turns, each frame bit-identical; beside the card's name
+    and power limit."""
     import dataclasses
 
     import numpy as np
 
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import legacy
     from tpu_pathtracer_torch.models.legacy import render_homebrew
+    from tpu_pathtracer_torch.models.pathtracer import clear_compiled_loops
     from tpu_pathtracer_torch.scene.homebrew import parse_homebrew_scene
     from tpu_pathtracer_torch.utils.image import quantize_u8
 
     u8 = lambda hdr: quantize_u8(torch.from_numpy(hdr)).numpy()
+    t_phase = time.perf_counter()
+    out = {}
     for name, path in write_homebrew(tmp).items():
         scene = parse_homebrew_scene(path)
         small = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 48),
@@ -1114,21 +1270,78 @@ def phase_homebrew(tmp):
         share, dmean, ok = fp_noise(u8(cpu), u8(card))
         full = scene.to(DEV)
         w, h = scene.camera.width, scene.camera.height
-        render_homebrew(full, seed=1)  # warm-up: the allocator's first blocks
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = render_homebrew(full, seed=0)
-        secs = time.perf_counter() - t0
-        emit("homebrew", scene=name, monte_carlo=scene.monte_carlo, ray_depth=scene.ray_depth,
+        mc = scene.monte_carlo
+        unit = "bounce" if mc else "iteration"
+        chunks = -(-w * h // min(RenderConfig().rays_per_batch, w * h))
+
+        def run(eager, s=full):
+            legacy.render_homebrew.iterations = 0
+            img = render_homebrew(s, seed=0, eager=eager)
+            # Monte-Carlo: every bounce of every sample runs in both loops.
+            n = legacy.render_homebrew.iterations
+            return img, n * s.ray_depth if mc else n
+
+        render_homebrew(full, seed=1)  # warm-up: captures the graph
+        label = f"homebrew {name} {w}x{h}@{scene.samples or 1}spp"
+        # One eager Monte-Carlo render: it takes ~14 s, the graph ~2.6 s.
+        order = ("graph", "eager", "graph") if mc else ("eager", "graph", "graph", "eager")
+        rows = loops_in_turns("homebrew_loops", label, run, order, unit)
+        replay = replay_cost("mc" if mc else "whitted")
+        img = rows["graph"][0]["img"]
+        if not mc:
+            # Whitted: ms per useful iteration (the eager loop's count) at each K.
+            useful = rows["eager"][0]["units"]
+            default_k, per_k = legacy.WHITTED_ITERATIONS, {}
+            try:
+                for k in WHITTED_K_TURNS:
+                    legacy.WHITTED_ITERATIONS = k
+                    run(False)  # captures this K's graph
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got, ran = run(False)
+                    secs = time.perf_counter() - t0
+                    per_k.setdefault(k, []).append(secs * 1e3 / useful)
+                    emit("homebrew_k", scene=label, k=k, seconds_render=secs, iterations=ran,
+                         useful_iterations=useful, ms_per_useful_iteration=secs * 1e3 / useful,
+                         identical_to_eager=bits_identical(got, img))
+                    if not bits_identical(got, img):
+                        raise AssertionError(f"Whitted with K={k} differs from eager")
+            finally:
+                legacy.WHITTED_ITERATIONS = default_k
+                clear_compiled_loops()
+            emit("homebrew_k_summary", scene=label, k=default_k,
+                 best_k=min(per_k, key=lambda k: sum(per_k[k]) / len(per_k[k])),
+                 k_ms_per_useful_iteration={str(k): v for k, v in per_k.items()},
+                 nvidia_smi=card_line())
+        # Profiled on one chunk (256x256 pixels, one 65,536-lane wavefront),
+        # the Monte-Carlo scene at 1 spp: the profiler's cost grows with its
+        # events.
+        prof_scene = dataclasses.replace(full, camera=full.camera.with_dims(256, 256),
+                                         samples=1 if mc else None)
+        run(False, prof_scene)  # captures the profiled graph outside the profile
+        busy = {}
+        for loop in ("eager", "graph"):
+            box = {}
+            ms, kernels = profiled_busy_ms(
+                lambda: box.update(n=run(loop == "eager", prof_scene)[1]))
+            busy[loop] = (ms, box["n"], kernels)
+        summary = busy_share("homebrew_loops", label, rows, unit, busy, replay)
+        secs = rows["graph"][1]["seconds"]
+        emit("homebrew", scene=name, monte_carlo=mc, ray_depth=scene.ray_depth,
              primitives=int(scene.valid.sum()), check="64x48 card vs cpu",
              hdr_max_abs_diff=float(np.abs(cpu - card).max()), u8_off_by_more_than_1=share,
              abs_mean_diff=dmean, cpu_seconds=round(cpu_s, 3),
-             timed=f"{w}x{h}@{scene.samples or 1}spp", seconds_render=secs,
+             timed=f"{w}x{h}@{scene.samples or 1}spp", chunks=chunks, seconds_render=secs,
+             seconds_render_eager=rows["eager"][-1]["seconds"],
              pixel_samples_per_s=w * h * (scene.samples or 1) / secs,
              hdr_finite=bool(np.isfinite(img).all()), u8_mean=float(u8(img).mean()),
              nvidia_smi=card_line())
         if not ok or not np.isfinite(card).all() or img.shape != (h, w, 3):
             raise AssertionError(f"homebrew {name}: the card disagrees with the CPU")
+        out[name] = {"rows": rows, "busy": summary}
+        clear_compiled_loops()
+    emit("homebrew_done", phase_seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def phase_cli_txt(tmp):
@@ -1340,14 +1553,16 @@ def phase_accumulate():
             raise AssertionError("add_rows does not repeat exactly on the card")
 
 
-def phase_sharded(path, tmp, main_row):
+def phase_sharded(path, tmp, main_row, engine_row):
     """A world-size-1 NCCL process group (no fallback: a failed init fails
     the phase), then the atrium at 512x512 @ 16 spp through
     ``render_sharded`` on a 1x1 mesh (launch counters set to 0 just before
     and read just after): the very engine calls of the main render, so its
-    HDR frame and measured rays must equal the main render's exactly; and
-    through
-    ``render_multihost`` with a checkpoint every 8 samples (fp noise)."""
+    HDR frame and measured rays must equal the main render's exactly;
+    through ``render_multihost`` with a checkpoint every 8 samples (fp
+    noise); and through ``render_sharded`` with the scan engine
+    (``compaction=False``, phase engine's config and spp), whose frame must
+    equal phase engine's single-device scan frame bit for bit."""
     import numpy as np
     import torch.distributed as dist
 
@@ -1371,8 +1586,22 @@ def phase_sharded(path, tmp, main_row):
         multi = render_multihost(scene, SPP, 0, checkpoint_path=os.path.join(tmp, "ck", "mh.npz"),
                                  checkpoint_every=SPP // 2)
         t_multi = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan = render_sharded(scene, engine_row["spp"], 0, config=engine_row["config"], mesh=mesh)
+        t_scan = time.perf_counter() - t0
+        scan_launches = read_launches()
     finally:
         dist.destroy_process_group()
+    scan_same = bits_identical(scan, engine_row["hdr"])
+    emit("sharded", entry="render_sharded scan engine", backend=backend, world_size=1,
+         mesh=mesh.shape, spp=engine_row["spp"], seconds_render=t_scan,
+         identical_to_single_device_scan=scan_same,
+         **{f"launches_{k}": v for k, v in scan_launches.items()})
+    if not scan_same or scan_launches["b1"] == 0 or scan_launches["b2"] == 0:
+        raise AssertionError("sharded: the scan engine's frame differs from the single-device "
+                             f"scan frame ({scan_launches})")
     identical = bool(np.array_equal(sharded, main_row["hdr"]))
     rows = {}
     for name, hdr in (("render_sharded", sharded), ("render_multihost", multi)):
@@ -1817,9 +2046,39 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
     return work
 
 
-def main():
+def run_only(names):
+    """The loop phases named (engine, homebrew, sharded) on their own, for
+    work on one loop: ``python3 chip_smoke.py engine homebrew``.  The last
+    line then names the phases run; only the full run ends with the
+    contract's line."""
+    unknown = set(names) - {"engine", "homebrew", "sharded"}
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    from tpu_pathtracer_torch.scene import fixtures
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        try:
+            import PIL  # noqa: F401
+            textured = True
+        except ImportError:
+            textured = False
+        path = fixtures.make_atrium_gltf(os.path.join(tmp, "atrium", "atrium.gltf"), detail=2,
+                                         textured=textured)
+        engine_row = phase_engine(path, tmp) if {"engine", "sharded"} & set(names) else None
+        if "homebrew" in names:
+            phase_homebrew(tmp)
+        if "sharded" in names:
+            main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2", "rng"))
+            phase_sharded(path, tmp, main_row, engine_row)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "phases_only": list(names)}), flush=True)
+
+
+def main(only=()):
     phase_device()
     phase_build()
+    if only:
+        return run_only(only)
     rng_times, rng_fits = phase_rng()
     from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig
@@ -1913,13 +2172,13 @@ def main():
         phase_graph(path, lit_path, field, env)
         sort_rows = phase_sort_keys(path, main_row)
         mode_rows = phase_modes_render(path, tmp, main_row)
-        phase_engine(path, tmp)
+        engine_row = phase_engine(path, tmp)
         phase_homebrew(tmp)
         phase_cli_txt(tmp)
         phase_renderer(path)
         phase_checkpoint(path, tmp, main_row)
         phase_accumulate()
-        phase_sharded(path, tmp, main_row)
+        phase_sharded(path, tmp, main_row, engine_row)
         phase_golden(tmp, phase="goldens_more", make="make_textured_cornell_gltf",
                      golden="textured_64x64_4096spp.ppm")
         phase_golden(tmp, phase="goldens_more", golden="cornell_96x64_4096spp.ppm",
@@ -1980,4 +2239,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

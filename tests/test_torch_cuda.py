@@ -1,6 +1,8 @@
 """``add_rows``, the persistent engine's accumulation, adds repeated rows in
 the same order on every run; on the card, the threefry kernel equals its
-twin and the persistent loop's CUDA graph equals the eager loop.  The CUDA
+twin, and the CUDA graphs of the persistent loop, the scan engine and the
+homebrew renderers equal their eager loops, each captured once and
+replayed; a capture that fails raises without a retry.  The CUDA
 cases have the marker ``cuda`` and skip on a machine without a card; on the
 card run ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
@@ -189,3 +191,136 @@ def test_torch_graph_cache_sees_in_place_edit(tmp_path):
     assert not np.array_equal(want, before)
     assert np.array_equal(got, want)
     pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+def test_torch_scan_graph_equals_eager(tmp_path):
+    """The scan engine's sample body as a CUDA graph against the eager
+    early-exit loop on the atrium (sort, kernels B1 / B2, threefry): over
+    three chunks, two passes and two seeds the frames are identical, the
+    body is captured once, and every later sample is one replay."""
+    _needs_card()
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    path = fixtures.make_atrium_gltf(str(tmp_path / "a.gltf"), detail=1, textured=False)
+    scene = parse_gltf_scene(path, 1.0)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(96, 96)).to("cuda")
+    config = RenderConfig(compaction=False, rays_per_batch=4096, spp_per_pass=1)
+    chunks = -(-96 * 96 // 4096)
+    pt.clear_compiled_loops()
+    captures, replays = CapturedBlock.captures, CapturedBlock.replays
+    for seed in (1, 2):
+        want = pt.render(scene, spp=2, seed=seed, config=config, eager=True)
+        got = pt.render(scene, spp=2, seed=seed, config=config)
+        assert np.isfinite(got).all() and got.max() > 0
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert CapturedBlock.captures == captures + 1
+    assert CapturedBlock.replays == replays + 2 * chunks * 2 - 1
+    pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["target", "cell", "dirhint", "none", "twopass", "dense",
+                                  "cheap2", "sobol", "many_lights"])
+def test_torch_scan_graph_holds_every_path(case, tmp_path):
+    """The scan engine's graph on every path its body can take, each frame
+    identical to the eager loop's: the atrium (2,048 lanes, sorted) under
+    every sort key (B4 under "target"), the intersector modes "twopass"
+    (B6) and "dense" (B5), the cheap recheck, Sobol draws, and a scene of
+    1,000 lights (B3)."""
+    _needs_card()
+    import dataclasses
+
+    import numpy as np
+
+    from test_torch_graph_loop import _case
+    from tpu_pathtracer_torch.config import IntersectTuning
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    change = {"twopass": {"tuning": IntersectTuning(mode="twopass")},
+              "dense": {"tuning": IntersectTuning(mode="dense")},
+              "cheap2": {"tuning": IntersectTuning(cheap_recheck=2)},
+              "sobol": {"jitter": "sobol", "lowdisc": "sobol"}}.get(case, {"sort_key": case})
+    scene, config, _ = _case("many_lights" if case == "many_lights" else "atrium_items", tmp_path)
+    scene = scene.to("cuda")
+    config = dataclasses.replace(config, compaction=False,
+                                 **({} if case == "many_lights" else change))
+    pt.clear_compiled_loops()
+    want = pt.render(scene, spp=2, seed=4, config=config, eager=True)
+    got = pt.render(scene, spp=2, seed=4, config=config)
+    assert np.isfinite(got).all() and got.max() > 0
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+def test_torch_homebrew_graphs_equal_eager(tmp_path):
+    """The Monte-Carlo sample body and the Whitted search's blocks as CUDA
+    graphs against the eager loops, over three chunks and two seeds: frames
+    identical, one capture per static configuration, one replay per later
+    sample (Monte-Carlo) or block (Whitted)."""
+    _needs_card()
+    import numpy as np
+
+    from test_torch_legacy import SCENES, _write
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import legacy
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+    from tpu_pathtracer_torch.scene.homebrew import parse_homebrew_scene
+
+    config = RenderConfig(rays_per_batch=100)  # 16x16: three chunks
+    for name in ("mc", "whitted"):
+        scene = parse_homebrew_scene(_write(tmp_path, name, SCENES[name])).to("cuda")
+        pt.clear_compiled_loops()
+        captures, replays = CapturedBlock.captures, CapturedBlock.replays
+        runs = 0
+        for seed in (3, 4):
+            want = legacy.render_homebrew(scene, seed=seed, config=config, eager=True)
+            legacy.render_homebrew.iterations = 0
+            got = legacy.render_homebrew(scene, seed=seed, config=config)
+            runs += legacy.render_homebrew.iterations // (
+                1 if name == "mc" else legacy.WHITTED_ITERATIONS)
+            assert np.isfinite(got).all() and got.max() > 0
+            assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), name
+        assert CapturedBlock.captures == captures + 1, name
+        assert CapturedBlock.replays == replays + runs - 1, name
+        if name == "mc":
+            assert runs == 2 * 3 * scene.samples
+    pt.clear_compiled_loops()
+
+
+@pytest.mark.cuda
+def test_torch_failed_capture_raises_without_retry(tmp_path, monkeypatch, capsys):
+    """A body that reads the host fails its capture on the card: ``render``
+    raises ``CaptureError`` at once, without a retry, though it may retry
+    failed executions; the eager loop of the same body renders."""
+    _needs_card()
+    import dataclasses
+
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CaptureError
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
+
+    path = fixtures.make_cornell_gltf(str(tmp_path / "c.gltf"))
+    scene = parse_gltf_scene(path, 1.0)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(16, 16)).to("cuda")
+    real = pt.sanitize_nans
+    monkeypatch.setattr(pt, "sanitize_nans", lambda c: real(c) + 0.0 * float(c.sum()))
+    config = RenderConfig(compaction=False, failure_retries=2)
+    pt.clear_compiled_loops()
+    with pytest.raises(CaptureError):
+        pt.render(scene, spp=2, seed=1, config=config)
+    assert "retrying" not in capsys.readouterr().err
+    pt.clear_compiled_loops()
+    assert pt.render(scene, spp=2, seed=1, config=config, eager=True).max() > 0

@@ -1,20 +1,22 @@
 """A loop body captured once in a CUDA graph and replayed.
 
-The port's counterpart of a jitted ``lax.while_loop``: ``CapturedBlock``
-runs ``iterations`` iterations of a body over a dict of carry tensors as one
-device program, with one host read ("is work left?") per block.  On CUDA the
+The port's counterpart of a jitted ``lax.while_loop`` or ``fori_loop``:
+``CapturedBlock`` runs ``iterations`` iterations of a body over a dict of
+carry tensors as one device program, with one host read ("is work left?")
+per block, or none when the caller knows the count.  On CUDA the
 first block runs eagerly on a side stream (it builds the kernel libraries
 and fills every cache the body reads, so none is made inside the graph's
 memory pool), then the same block is captured; every later block is a
 replay.  On any other device every block runs as it is, with no graph.
 The carries and everything the body reads stay at fixed addresses: the body
 reads its inputs from the tensors of ``carries`` and writes the new carries
-back into them at the end of the block.
+back into them at the end of the block.  A capture that fails raises
+``CaptureError``, which a caller's retry of failed executions re-raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -30,19 +32,26 @@ def counted_wrappers() -> tuple:
             ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key)
 
 
+class CaptureError(RuntimeError):
+    """A CUDA graph capture failed: a fault of the body, not of one
+    execution, so no retry may hide it."""
+
+
 class CapturedBlock:
     """``iterations`` runs of ``step`` (carries -> new carries) as one CUDA
     graph (on CUDA); ``more(carries)`` is the [] bool the host reads after a
-    block."""
+    block, or None for a body run a known number of times (no host read)."""
 
     captures = 0  # graphs captured, and
     replays = 0  # replays of every block: a run shows the graph ran
 
-    def __init__(self, step: Callable[[dict], dict], more: Callable[[dict], torch.Tensor],
+    def __init__(self, step: Callable[[dict], dict],
+                 more: Optional[Callable[[dict], torch.Tensor]],
                  carries: Dict[str, torch.Tensor], iterations: int):
         self.step, self.more, self.iterations = step, more, iterations
         self.carries = carries
-        self.flag = torch.ones((), dtype=torch.bool, device=next(iter(carries.values())).device)
+        self.device = next(iter(carries.values())).device
+        self.flag = None if more is None else torch.ones((), dtype=torch.bool, device=self.device)
         self.graph = None
         self.per_replay = ()
 
@@ -57,10 +66,11 @@ class CapturedBlock:
             c = self.step(c)
         for name, value in self.carries.items():
             value.copy_(c[name])
-        self.flag.copy_(self.more(c))
+        if self.flag is not None:
+            self.flag.copy_(self.more(c))
 
     def _capture(self) -> None:
-        dev = self.flag.device
+        dev = self.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
@@ -70,8 +80,11 @@ class CapturedBlock:
         wrappers = counted_wrappers()
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._block()
+        try:
+            with torch.cuda.graph(graph):
+                self._block()
+        except Exception as err:
+            raise CaptureError(f"CUDA graph capture failed: {err}") from err
         # The capture ran nothing: its launches count once per replay.
         self.per_replay = tuple((fn, fn.launches - n) for fn, n in zip(wrappers, before)
                                 if fn.launches != n)
@@ -80,9 +93,10 @@ class CapturedBlock:
         self.graph = graph
         CapturedBlock.captures += 1
 
-    def run(self) -> bool:
-        """One block of iterations; returns whether work is left."""
-        if self.flag.device.type != "cuda":
+    def run(self) -> Optional[bool]:
+        """One block of iterations; returns whether work is left (None
+        without ``more``: then nothing is read back)."""
+        if self.device.type != "cuda":
             self._block()
         elif self.graph is None:
             self._capture()
@@ -91,4 +105,4 @@ class CapturedBlock:
             CapturedBlock.replays += 1
             for fn, n in self.per_replay:
                 fn.launches += n
-        return bool(self.flag)
+        return None if self.flag is None else bool(self.flag)

@@ -13,13 +13,15 @@ sample, depth) stream, so both engines are the JAX package's estimator
 draw for draw; only per-pixel summation order (and the intersector's fp
 rounding) differ.
 
-The persistent engine's loop runs as one CUDA graph on a CUDA device (the
-port of the JAX package's jitted ``render_chunk_persistent``): a block of
-``LOOP_ITERATIONS`` iterations is captured once per static configuration
-and replayed with one host read per block (``persistent_accum``,
-``models/graph.py``); the CPU runs the same blocks without a graph.  The
-scan engine runs eagerly, one host read per bounce.  Unknown configuration
-values raise ``ValueError``.
+Both engines run as CUDA graphs on a CUDA device (the port of the JAX
+package's jitted ``render_chunk_persistent`` and ``render_chunk``), each
+captured once per static configuration (``models/graph.py``): the
+persistent loop as blocks of ``LOOP_ITERATIONS`` iterations replayed with
+one host read per block (``persistent_accum``), the scan engine as one
+sample of all ``ray_depth`` bounces replayed once per sample with no host
+read (``scan_accum``); the CPU runs the same bodies without a graph.
+``eager=True`` runs either engine's loop eagerly instead.  Unknown
+configuration values raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from ..ops.rng import (
 from ..ops.vecmath import constant, cross, dot, frame_apply, length2, normalize, where3
 from ..scene.types import Camera, TriangleScene
 from ..utils.profiling import stage
-from .graph import CapturedBlock
+from .graph import CapturedBlock, CaptureError
 
 # Uniform draws per ray per bounce:
 # 0 alpha coin | 1 vndf coin | 2,3 vndf | 4 mixture pick | 5,6 cosine
@@ -361,11 +363,11 @@ GRAPH_CACHE = 4
 
 
 def engine_loop(config: RenderConfig, device, eager: bool = False) -> str:
-    """The loop the persistent engine runs (see ``persistent_accum``):
-    "eager" when asked for, else "graph", with one rule: intersector mode
-    "bins" runs "eager" on CUDA, because it reads the host inside the
-    intersector (a ``nonzero`` and its overflow flag), which a CUDA graph
-    cannot hold."""
+    """The loop either engine runs (see ``persistent_accum``,
+    ``scan_accum``): "eager" when asked for, else "graph", with one rule:
+    intersector mode "bins" runs "eager" on CUDA, because it reads the host
+    inside the intersector (a ``nonzero`` and its overflow flag), which a
+    CUDA graph cannot hold."""
     if eager:
         return "eager"
     if torch.device(device).type == "cuda" and config.tuning.resolve().mode == "bins":
@@ -373,13 +375,14 @@ def engine_loop(config: RenderConfig, device, eager: bool = False) -> str:
     return "graph"
 
 
-def _traced_scalars(device, chunk_start, seed, sample_start, w_total, pool_pix) -> torch.Tensor:
-    """[5] int64 on ``device``: the first pixel, the seed's key word, the
-    first sample, the pool size and the pool's pixels.  Each may be a Python
-    int or a 0-d tensor (the JAX package's traced arguments)."""
-    vals = (chunk_start, seed, sample_start, w_total, pool_pix)
+def _traced_scalars(device, chunk_start, seed, *rest) -> torch.Tensor:
+    """[2 + len(rest)] int64 on ``device``: the first pixel, the seed's key
+    word, then ``rest`` (the persistent engine's first sample, pool size and
+    pool pixels; the scan engine's first sample).  Each may be a Python int
+    or a 0-d tensor (the JAX package's traced arguments)."""
+    vals = (chunk_start, seed, *rest)
     if not any(isinstance(v, torch.Tensor) for v in vals):
-        vals = (chunk_start, int(seed) & 0xFFFFFFFF, sample_start, w_total, pool_pix)
+        vals = (chunk_start, int(seed) & 0xFFFFFFFF, *rest)
         return torch.tensor([int(v) for v in vals], dtype=torch.int64, device=device)
     out = torch.stack([
         v.reshape(()).to(device=device, dtype=torch.int64) if isinstance(v, torch.Tensor)
@@ -507,18 +510,19 @@ class _PersistentLoop:
 
 
 _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_CAMERA_TENSORS = ("position", "right", "up", "forward", "fov_x")
 
 
-def _static_key(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: int,
-                iterations: int):
-    """(cache key, the scene's tensors) of a compiled loop: the JAX
-    package's static arguments (lane count, config, accumulator rows) with
-    the scene as the identity and version of its tensors and its plain
-    fields, the camera's pixel size and the iteration count; the camera's
-    tensors are copied in at every call instead.  The version counts the
-    in-place writes to a tensor: a graph reads the copies ``made_once``
-    derived from the scene's tensors when it was captured, which such a
-    write makes stale."""
+def _static_key(scene, config: RenderConfig, *static):
+    """(cache key, the scene's tensors) of a compiled body: the JAX
+    package's static arguments (``static``: the engine's name, lane count,
+    accumulator rows, iterations per replay) and config, with the scene (a
+    ``TriangleScene`` or ``PrimitiveScene``) as the identity and version of
+    its tensors and its plain fields, and the camera's pixel size; the
+    camera's tensors are copied in at every call instead.  The version
+    counts the in-place writes to a tensor: a graph reads the copies
+    ``made_once`` derived from the scene's tensors when it was captured,
+    which such a write makes stale."""
     tensors, plain = [], []
 
     def walk(obj, prefix):
@@ -536,27 +540,29 @@ def _static_key(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: i
     walk(scene, "")
     config = dataclasses.replace(config, tuning=config.tuning.resolve())
     key = (str(scene.device), tuple((id(t), t._version) for t in tensors), tuple(plain), config,
-           n_rays, rows, iterations)
+           *static)
     return key, tensors
 
 
-def _compiled_loop(scene: TriangleScene, config: RenderConfig, n_rays: int, rows: int,
-                   iterations: int) -> dict:
-    """The cached compiled loop of this static configuration (made at the
-    first call; the graph itself is captured at the first run)."""
-    key, tensors = _static_key(scene, config, n_rays, rows, iterations)
+def compiled_body(engine: str, scene, config: RenderConfig, static: tuple, make) -> dict:
+    """The cached compiled body of ``engine`` for this static configuration,
+    made at the first call by ``make(camera, scalars)`` over device buffers
+    the caller fills before every run (the graph itself is captured at the
+    body's first run).  One cache of ``GRAPH_CACHE`` entries serves every
+    engine: a render uses one engine on one scene, and the bound is on the
+    device memory the cached graphs hold, whatever made them."""
+    key, tensors = _static_key(scene, config, engine, *static)
     entry = _GRAPHS.get(key)
     if entry is None:
         dev = scene.device
         cam = scene.camera
         camera = dataclasses.replace(
             cam, **{name: torch.empty_like(getattr(cam, name), device=dev)
-                    for name in ("position", "right", "up", "forward", "fov_x")})
+                    for name in _CAMERA_TENSORS})
         scalars = torch.zeros(5, dtype=torch.int64, device=dev)
         # The graph reads the scene's tensors by address: the entry keeps
         # them alive, so no other tensor can take their memory (or ids).
-        entry = dict(loop=_PersistentLoop(scene, config, n_rays, rows, camera, scalars),
-                     block=None, tensors=tensors)
+        entry = dict(body=make(camera, scalars), block=None, tensors=tensors)
         _GRAPHS[key] = entry
         while len(_GRAPHS) > GRAPH_CACHE:
             _GRAPHS.popitem(last=False)
@@ -564,8 +570,26 @@ def _compiled_loop(scene: TriangleScene, config: RenderConfig, n_rays: int, rows
     return entry
 
 
+def load_inputs(body, camera: Camera, scalars: torch.Tensor) -> None:
+    """Copy a call's camera and traced scalars into a compiled body's
+    buffers (``body.camera``, ``body.scalars``)."""
+    for name in _CAMERA_TENSORS:
+        getattr(body.camera, name).copy_(getattr(camera, name))
+    body.scalars[:scalars.shape[0]].copy_(scalars)
+
+
+def run_block(entry: dict, step, more, carries: dict, iterations: int) -> CapturedBlock:
+    """The entry's ``CapturedBlock`` started from ``carries`` (made over them
+    at the first call)."""
+    if entry["block"] is None:
+        entry["block"] = CapturedBlock(step, more, carries, iterations)
+    else:
+        entry["block"].load(carries)
+    return entry["block"]
+
+
 def clear_compiled_loops() -> None:
-    """Drop every cached compiled loop (and the memory its graph holds)."""
+    """Drop every cached compiled body (and the memory its graph holds)."""
     _GRAPHS.clear()
 
 
@@ -625,17 +649,12 @@ def persistent_accum(
             persistent_accum.iterations += 1
         return body.accum[:rows], c["n_bounce"]
 
-    entry = _compiled_loop(scene, config, n_rays, rows, k)
-    body = entry["loop"]
-    for name in ("position", "right", "up", "forward", "fov_x"):
-        getattr(body.camera, name).copy_(getattr(scene.camera, name))
-    body.scalars.copy_(scalars)
+    entry = compiled_body("persistent", scene, config, (n_rays, rows, k), lambda camera, buf: (
+        _PersistentLoop(scene, config, n_rays, rows, camera, buf)))
+    body = entry["body"]
+    load_inputs(body, scene.camera, scalars)
     carries = body.start()
-    if entry["block"] is None:
-        entry["block"] = CapturedBlock(body.iteration, body.more, carries, k)
-    else:
-        entry["block"].load(carries)
-    block = entry["block"]
+    block = run_block(entry, body.iteration, body.more, carries, k)
     while True:
         more = block.run()
         persistent_accum.iterations += k
@@ -661,57 +680,149 @@ def render_chunk_persistent(scene, chunk_start, seed, sample_start, n_rays: int,
     return acc / spp, n_bounce
 
 
-def trace(scene: TriangleScene, origin, direction, seed: int, pixel_ids: torch.Tensor,
-          config: RenderConfig, sample=0) -> torch.Tensor:
+class _ScanTracer:
+    """The scan engine's bounce loop over ``r`` lanes, with its sort key and
+    parking origin made once (so a captured body reads them at fixed
+    addresses): one full path per input ray over the ``ray_depth``
+    wavefront bounces, as the JAX package's ``trace`` scans them."""
+
+    def __init__(self, scene: TriangleScene, config: RenderConfig, r: int):
+        dev = scene.device
+        self.scene, self.config = scene, config
+        self.sort_rays = scene.capacity > 1024 and r >= 2048
+        self.key_fn = _make_sort_key(scene, config, r) if self.sort_rays else None
+        self.far = torch.full((3,), 1e30, device=dev)
+        self.slot = torch.arange(r, dtype=torch.int32, device=dev)  # input position of each lane
+
+    def __call__(self, origin, direction, seed, pixel_ids: torch.Tensor, sample,
+                 early_exit: bool) -> torch.Tensor:
+        """[R, 3] radiance in input order, not NaN-sanitized.  ``early_exit``
+        stops once every ray is dead (a host read per bounce); without it
+        every bounce runs, as in a CUDA graph.  Both give the same bits: a
+        bounce over dead lanes leaves radiance, throughput, ``alive`` and
+        the order of the lanes as they were (every dead lane's sort key is
+        one constant, so the stable sort keeps their order)."""
+        scene, config = self.scene, self.config
+        o, d = origin, direction
+        throughput = torch.ones_like(o)
+        radiance = torch.zeros_like(o)
+        alive = torch.isfinite(o[:, 0])
+        pids, slot = pixel_ids, self.slot
+        hint = torch.full_like(slot, -1)
+        for depth in range(scene.ray_depth):
+            if early_exit:
+                if not bool(alive.any()):
+                    break
+                scan_accum.bounces += 1  # (``scan_accum`` counts the graph's per sample)
+            if self.sort_rays:
+                perm = torch.argsort(self.key_fn(o, d, alive, hint), stable=True)
+                o, d, throughput, radiance = o[perm], d[perm], throughput[perm], radiance[perm]
+                alive, pids, slot, hint = alive[perm], pids[perm], slot[perm], hint[perm]
+            draws = bounce_draws(seed, sample, depth, pids, config)
+            o, d, throughput, radiance, alive, hint = bounce_step(
+                scene, config, o, d, throughput, radiance, alive, draws
+            )
+            if self.sort_rays:
+                # Park dead rays far away so their tiles activate no chunk.
+                o = where3(alive, o, self.far)
+        # Depth exhaustion: the reference's deepest call returns {0,0,0},
+        # which a NaN throughput chain turns into NaN (src/raytracer.h:596-598).
+        radiance = radiance + torch.where(alive[:, None], throughput * 0.0,
+                                          torch.zeros_like(radiance))
+        if self.sort_rays:
+            radiance = radiance[torch.argsort(slot)]  # undo the composed permutation
+        return radiance
+
+
+def trace(scene: TriangleScene, origin, direction, seed, pixel_ids: torch.Tensor,
+          config: RenderConfig, sample=0, *, early_exit: bool = True) -> torch.Tensor:
     """The scan engine's bounce loop: one full path per input ray, over at
-    most ``ray_depth`` wavefront bounces, stopping early once every ray is
-    dead (a host read per bounce).  Returns [R, 3] radiance in input order,
-    not NaN-sanitized."""
-    r = origin.shape[0]
-    dev = origin.device
-    sort_rays = scene.capacity > 1024 and r >= 2048
-    key_fn = _make_sort_key(scene, config, r) if sort_rays else None
-    far = torch.full((3,), 1e30, device=dev)
-    o, d = origin, direction
-    throughput = torch.ones_like(o)
-    radiance = torch.zeros_like(o)
-    alive = torch.isfinite(o[:, 0])
-    pids = pixel_ids
-    slot = torch.arange(r, dtype=torch.int32, device=dev)  # input position of each lane
-    hint = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    for depth in range(scene.ray_depth):
-        if not bool(alive.any()):
-            break
-        if sort_rays:
-            perm = torch.argsort(key_fn(o, d, alive, hint), stable=True)
-            o, d, throughput, radiance = o[perm], d[perm], throughput[perm], radiance[perm]
-            alive, pids, slot, hint = alive[perm], pids[perm], slot[perm], hint[perm]
-        draws = bounce_draws(seed, sample, depth, pids, config)
-        o, d, throughput, radiance, alive, hint = bounce_step(
-            scene, config, o, d, throughput, radiance, alive, draws
-        )
-        if sort_rays:
-            # Park dead rays far away so their tiles activate no chunk.
-            o = where3(alive, o, far)
-    # Depth exhaustion: the reference's deepest call returns {0,0,0}, which
-    # a NaN throughput chain turns into NaN (src/raytracer.h:596-598).
-    radiance = radiance + torch.where(alive[:, None], throughput * 0.0, torch.zeros_like(radiance))
-    if sort_rays:
-        radiance = radiance[torch.argsort(slot)]  # undo the composed permutation
-    return radiance
+    most ``ray_depth`` wavefront bounces, by default stopping early once
+    every ray is dead (a host read per bounce; ``early_exit=False`` runs
+    them all, with the same result).  Returns [R, 3] radiance in input
+    order, not NaN-sanitized."""
+    return _ScanTracer(scene, config, origin.shape[0])(origin, direction, seed, pixel_ids,
+                                                        sample, early_exit)
 
 
-def render_chunk(scene: TriangleScene, chunk_start: int, seed: int, sample_start: int,
-                 n_rays: int, spp: int, config: RenderConfig) -> torch.Tensor:
+class _ScanSample:
+    """One sample of the scan engine over ``n_rays`` pixels: what one
+    iteration of the JAX package's ``render_chunk`` sample loop does (camera
+    jitter, primary rays, every bounce, the sanitized add into the
+    accumulator).  The first pixel and the seed's key word are read from
+    ``scalars`` ([3+] int64 on the device), the sample index from the carry
+    ``sample`` (which starts at the first sample) and the camera from
+    ``camera``'s tensors, so the body captured once in a CUDA graph serves
+    every sample, chunk, pass, seed and camera of its static configuration
+    (scene, config, lane count)."""
+
+    def __init__(self, scene: TriangleScene, config: RenderConfig, n_rays: int, camera: Camera,
+                 scalars: torch.Tensor):
+        self.config, self.camera, self.scalars = config, camera, scalars
+        self.chunk_start, self.seed, self.sample_start = scalars.unbind()[:3]
+        self.iota = torch.arange(n_rays, dtype=torch.int32, device=scene.device)
+        self.tracer = _ScanTracer(scene, config, n_rays)
+
+    def start(self) -> dict:
+        """The carries before the first sample."""
+        return dict(acc=torch.zeros((self.iota.shape[0], 3), device=self.iota.device),
+                    sample=self.sample_start.clone())
+
+    def step(self, c: dict) -> dict:
+        gs = c["sample"]
+        pids = self.chunk_start + self.iota  # int32, as the eager loop's ids
+        o, d = gen_rays(self.camera, pids, jitter_uniforms(self.seed, gs, pids,
+                                                           self.config.jitter))
+        rad = self.tracer(o, d, self.seed, pids, gs, early_exit=False)
+        return dict(acc=c["acc"] + sanitize_nans(rad), sample=gs + 1)
+
+
+def scan_accum(scene: TriangleScene, chunk_start, seed, sample_start, n_rays: int, spp: int,
+               config: RenderConfig, *, eager: bool = False) -> torch.Tensor:
+    """The scan engine: [n_rays, 3] radiance SUM over samples
+    ``sample_start .. sample_start + spp - 1`` of the ``n_rays`` pixels from
+    ``chunk_start`` (render_pixel, src/raytracer.h:618-627).
+
+    In the loop ``engine_loop`` picks: "eager" traces each sample with a
+    host read per bounce (its early exit); "graph" runs ``_ScanSample``,
+    cached per static configuration, once per sample with no host read: on
+    CUDA as one CUDA graph captured at the first sample and replayed for
+    every later one (the port of the JAX package's jitted ``render_chunk``,
+    whose ``fori_loop`` over samples scans every bounce), on the CPU as it
+    is.  Both give the same bits.  ``chunk_start``, ``seed`` and
+    ``sample_start`` may be Python ints or 0-d tensors.
+    ``scan_accum.bounces`` counts the wavefront bounces run (a replay runs
+    ``ray_depth``)."""
+    dev = scene.device
+    if engine_loop(config, dev, eager) == "eager":
+        pids = chunk_start + torch.arange(n_rays, dtype=torch.int32, device=dev)
+        acc = torch.zeros((n_rays, 3), device=dev)
+        for s in range(spp):
+            gs = sample_start + s
+            o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, gs, pids, config.jitter))
+            acc = acc + sanitize_nans(trace(scene, o, d, seed, pids, config, sample=gs))
+        return acc
+    entry = compiled_body("scan", scene, config, (n_rays,), lambda camera, buf: (
+        _ScanSample(scene, config, n_rays, camera, buf)))
+    body = entry["body"]
+    load_inputs(body, scene.camera, _traced_scalars(dev, chunk_start, seed, sample_start))
+    block = run_block(entry, body.step, None, body.start(), 1)
+    for _ in range(spp):
+        block.run()
+    scan_accum.bounces += spp * scene.ray_depth
+    # A copy: the next call of this body overwrites its buffers.
+    return block.carries["acc"].clone()
+
+
+scan_accum.bounces = 0
+
+
+def render_chunk(scene: TriangleScene, chunk_start, seed, sample_start, n_rays: int, spp: int,
+                 config: RenderConfig, *, eager: bool = False) -> torch.Tensor:
     """The scan engine: mean radiance over ``spp`` samples of the ``n_rays``
-    pixels from ``chunk_start`` (render_pixel, src/raytracer.h:618-627)."""
-    pids = chunk_start + torch.arange(n_rays, dtype=torch.int32, device=scene.device)
-    acc = torch.zeros((n_rays, 3), device=scene.device)
-    for s in range(spp):
-        gs = sample_start + s
-        o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, gs, pids, config.jitter))
-        acc = acc + sanitize_nans(trace(scene, o, d, seed, pids, config, sample=gs))
-    return acc / spp
+    pixels from ``chunk_start`` (``eager``: see ``scan_accum``)."""
+    return scan_accum(scene, chunk_start, seed, sample_start, n_rays, spp, config,
+                      eager=eager) / spp
 
 
 def pick_chunk(config: RenderConfig, npix: int) -> int:
@@ -742,14 +853,16 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     out-of-memory error, or a kernel launch that failed to start.  It cannot
     repair a fault that kills the context (an illegal address, or a kernel
     trapped by ``mbar_wait_or_trap``): every later CUDA call fails the same
-    way and the retries re-raise.  With the persistent engine
-    ``stats["measured_rays"]`` receives the number of rays traced (live
-    lanes entering each bounce) by the executions that succeeded; the scan
-    engine leaves ``stats`` untouched, as in the JAX package.  The
-    persistent engine runs its loop as a CUDA graph on CUDA (eagerly under
-    intersector mode "bins") and in host-read batches on the CPU
-    (``persistent_accum``); ``eager=True`` runs it with a host read per
-    iteration instead, and ``stats["loop"]`` receives the loop taken."""
+    way and the retries re-raise.  A CUDA graph capture that fails
+    (``CaptureError``) is a fault of the engine's body and is never
+    retried.  With the persistent engine ``stats["measured_rays"]``
+    receives the number of rays traced (live lanes entering each bounce) by
+    the executions that succeeded, and ``stats["loop"]`` the loop taken;
+    the scan engine leaves ``stats`` untouched, as in the JAX package.
+    Either engine runs its loop as a CUDA graph on CUDA (eagerly under
+    intersector mode "bins") and as the same body uncaptured on the CPU
+    (``persistent_accum``, ``scan_accum``); ``eager=True`` runs the eager
+    loop instead."""
     config = config or RenderConfig()
     check_config(config)
     phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
@@ -779,7 +892,7 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
             todo = min(pass_spp, spp - s0)
             with phase("dispatch"):
                 if not config.compaction:
-                    rad = render_chunk(scene, start, seed, s0, chunk, todo, config)
+                    rad = render_chunk(scene, start, seed, s0, chunk, todo, config, eager=eager)
                 else:
                     if frame_pool:
                         pc, ar = n, n
@@ -803,6 +916,8 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
             try:
                 host, rays = run(start, n)
                 break
+            except CaptureError:  # a fault of the loop's body: no retry hides it
+                raise
             except Exception as err:  # a failed execution of this chunk
                 if attempt == config.failure_retries:
                     raise

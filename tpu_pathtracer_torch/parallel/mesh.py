@@ -30,16 +30,8 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig
-from ..models.pathtracer import (
-    check_config,
-    engine_loop,
-    gen_rays,
-    persistent_accum,
-    pick_chunk,
-    sanitize_nans,
-    trace,
-)
-from ..ops.rng import jitter_uniforms
+from ..models.graph import CaptureError
+from ..models.pathtracer import check_config, engine_loop, persistent_accum, pick_chunk, scan_accum
 from ..scene.types import TriangleScene
 from .checkpoint import background
 
@@ -130,8 +122,8 @@ def render_pass_rank(
     spp_local = -(-spp // n_spp_mesh)
     rank_start = chunk_start + ray_idx * n_local
     dev = scene.device
+    my_count = min(max(spp - spp_idx * spp_local, 0), spp_local)
     if config.compaction:
-        my_count = min(max(spp - spp_idx * spp_local, 0), spp_local)
         npix = scene.camera.width * scene.camera.height
         pc_rank = min(max(npix - rank_start, 0), n_local)
         # The pool floors at one pixel so a fully padded rank's ``% pool``
@@ -140,16 +132,8 @@ def render_pass_rank(
             scene, rank_start, seed, sample_start + spp_idx * spp_local, n_local,
             pc_rank * my_count, config, pix_count=max(pc_rank, 1),
         )
-    pixel_ids = rank_start + torch.arange(n_local, dtype=torch.int32, device=dev)
-    acc = torch.zeros((n_local, 3), device=dev)
-    for s in range(spp_local):
-        rel_s = spp_idx * spp_local + s
-        if rel_s >= spp:  # masked: past the render's last sample
-            break
-        gs = sample_start + rel_s
-        offsets = jitter_uniforms(seed, gs, pixel_ids, config.jitter)
-        o, d = gen_rays(scene.camera, pixel_ids, offsets)
-        acc = acc + sanitize_nans(trace(scene, o, d, seed, pixel_ids, config, sample=gs))
+    acc = scan_accum(scene, rank_start, seed, sample_start + spp_idx * spp_local, n_local,
+                     my_count, config)
     return acc, torch.zeros((), dtype=torch.int64, device=dev)
 
 
@@ -208,6 +192,8 @@ def render_pass_sharded(
                 mesh.shape, mesh.ray_idx, mesh.spp_idx,
             )
             break
+        except CaptureError:  # a fault of the engine's body: no retry hides it
+            raise
         except Exception as err:  # a failed execution of this rank's share
             if attempt == config.failure_retries:
                 raise

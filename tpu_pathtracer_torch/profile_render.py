@@ -30,8 +30,9 @@ render at 1 spp with each loop.  A case of ``CASES``:
 
 A case of ``KERNEL_CASES`` (the atrium under the sort key or intersector
 mode whose kernel no case above runs: B4 "target", B5 "dense", B7 "bins")
-only profiles its loop at 4 spp for ``in_graph`` ("bins" keeps the eager
-loop, so its figures are per launch in that loop).
+only profiles its loop at 4 spp for ``in_graph`` and the device's busy ms
+and operations per iteration ("bins" keeps the eager loop, so its figures
+are per launch in that loop).
 
 Prints one JSON line per case, then the card's ``nvidia-smi`` name, power
 limit, SM clock and power draw.
@@ -311,9 +312,12 @@ def kernel_case(case, tmp, profile_spp=PROFILE_SPP):
     loop = "eager" if config.tuning.mode == "bins" else "graph"
     _render(scene, config, 1, loop)
     prof, seconds, iterations = _profiled(scene, config, profile_spp, loop)
+    dev = _device_times(prof)
     return {"case": case, "textured": textured, "loop": loop, "spp": profile_spp,
             "iterations": iterations, "seconds": seconds,
-            "in_graph": _in_graph(_device_times(prof), iterations)}
+            "busy_ms_per_iteration": sum(ms for ms, _ in dev.values()) / iterations,
+            "device_ops_per_iteration": sum(c for _, c in dev.values()) / iterations,
+            "in_graph": _in_graph(dev, iterations)}
 
 
 def main(argv=()):
