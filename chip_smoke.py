@@ -46,6 +46,11 @@ just before and read just after:
                    passes of 4, resumed to 16, bit-equal to an uninterrupted
                    checkpointed render; then ``add_rows``, the engine's
                    accumulation, timed beside ``index_add_`` (accumulate);
+  headline         ``tpu_pathtracer_torch.run_headline``'s ``main`` in this
+                   process, the atrium at 1000x1000, 16 spp in checkpoints
+                   of 8, then ``python -m tpu_pathtracer_torch.run_headline``
+                   supervised (``HEADLINE_SUPERVISE=1``) in a process of its
+                   own, resuming the checkpoint to 24 spp;
   sharded          in a world-size-1 NCCL process group, the atrium through
                    ``render_sharded`` on a 1x1 mesh (measured rays equal to
                    the main render's), ``render_multihost`` with a
@@ -94,7 +99,11 @@ plain torch):
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero without the final line.  ``python3 chip_smoke.py engine homebrew
-sharded`` (any of the three) runs only those phases after the build.  The
+sharded headline`` (any of them) runs only those phases after the build;
+``python3 chip_smoke.py headline_full`` runs the JAX package's headline
+workload (the atrium at 1000x1000 @ 1000 spp in checkpoints of 50) and
+holds its frame against the JAX package's committed frame by the fp-noise
+rule, keeping the frame in ``build/headline_full/``.  The
 last two lines before the final one are the kernel table and the card's
 ``nvidia-smi`` name and power limit; the final line is ``{"ok": true,
 "device": {...}}``.
@@ -1515,6 +1524,185 @@ def phase_checkpoint(path, tmp, main_row):
         raise AssertionError("checkpoint: the resumed render is wrong")
 
 
+HEADLINE_SIZE = 1000
+# The JAX package's headline frame at seed 0 (its scripts/run_headline.py),
+# and an earlier run of the same script: their difference is the noise
+# between two runs of one package.
+HEADLINE_REF = os.path.join(ROOT, "out", "samples", "atrium_1000x1000_1000spp_r5.ppm")
+HEADLINE_EARLIER = os.path.join(ROOT, "out", "samples", "atrium_1000x1000_1000spp.ppm")
+
+
+def headline_main(env):
+    """``run_headline.main()`` in this process, the atrium at 1000x1000 with
+    ``env`` added to the environment, the launch counters set to 0 just
+    before and read just after.  Returns its exit code, ledger line,
+    progress lines, seconds, launches, CUDA graphs captured, the compiled
+    loops cached, and the device memory after each saved pass (allocated,
+    reserved, peak allocated since the start)."""
+    from tpu_pathtracer_torch import run_headline
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.models.graph import CapturedBlock
+
+    real = run_headline.render_with_checkpoints
+    memory = []
+
+    def render(*args, progress, **kw):
+        def watch(done, total):
+            memory.append((done, torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+                           torch.cuda.max_memory_allocated()))
+            progress(done, total)
+        return real(*args, progress=watch, **kw)
+
+    pt.clear_compiled_loops()  # earlier phases' graphs: the run measures its own memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    captures = CapturedBlock.captures
+    out = io.StringIO()
+    env = {"HEADLINE_SIZE": str(HEADLINE_SIZE), **{k: str(v) for k, v in env.items()}}
+    with mock.patch.dict(os.environ, env), mock.patch.object(run_headline,
+                                                             "render_with_checkpoints", render):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = run_headline.main()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    lines = out.getvalue().strip().splitlines()
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    row = dict(rc=code, ckpt=env["HEADLINE_CKPT"], progress=rows[:-1],
+               line=rows[-1] if code == 0 and rows else None,
+               seconds=secs, launches=launches, graph_captures=CapturedBlock.captures - captures,
+               cached_loops=len(pt._GRAPHS), memory=memory)
+    pt.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    return row
+
+
+def headline_checks(label, row, spp, every, resumed_from=0):
+    """The in-process run's checks: exit 0, one progress line a saved pass,
+    the ledger line's keys and card and offsets, B1, B2 and the threefry
+    kernel launched, one or two captured graphs (the full chunks' and the
+    tail's, at most), device memory flat after the
+    first pass; the frame read back at 1000x1000 and the checkpoint's
+    accumulator finite.  Returns the frame (u8) and the emitted fields."""
+    import numpy as np
+
+    from tpu_pathtracer_torch.parallel.checkpoint import RenderState
+    from tpu_pathtracer_torch.utils.image import read_ppm
+
+    line = row["line"] or {}
+    keys = {"workload", "wall_s_this_run", "spp_rendered_this_run", "samples_per_s",
+            "resumed_from_spp", "out", "card"}
+    img = read_ppm(line["out"]) if row["rc"] == 0 else None
+    accum = RenderState.load(row["ckpt"]).accum if row["rc"] == 0 else None
+    passes = [p["spp_done"] for p in row["progress"]]
+    _, alloc0, reserved0, _ = row["memory"][0] if row["memory"] else (0, 0, 0, 0)
+    flat = all(a == alloc0 and r == reserved0 for _, a, r, _ in row["memory"])
+    fields = dict(
+        rc=row["rc"], seconds=row["seconds"], ledger=line, passes=passes,
+        **{f"launches_{k}": v for k, v in row["launches"].items()},
+        graph_captures=row["graph_captures"], cached_loops=row["cached_loops"],
+        peak_allocated_bytes=max((m[3] for m in row["memory"]), default=None),
+        reserved_bytes=row["memory"][-1][2] if row["memory"] else None,
+        allocated_after_each_pass=sorted({m[1] for m in row["memory"]}),
+        reserved_after_each_pass=sorted({m[2] for m in row["memory"]}), memory_flat=flat,
+        frame_shape=None if img is None else list(img.shape),
+        accum_finite=None if accum is None else bool(np.isfinite(accum).all()),
+        nvidia_smi=card_line())
+    want_passes = list(range(resumed_from + every, spp, every)) + [spp]
+    if row["rc"] != 0 or set(line) != keys or line["card"] != card_line() \
+            or (line["resumed_from_spp"], line["spp_rendered_this_run"]) != (
+                resumed_from, spp - resumed_from) \
+            or passes != want_passes or not flat or not 1 <= row["graph_captures"] <= 2 \
+            or any(row["launches"][k] == 0 for k in ("b1", "b2", "rng")) \
+            or img.shape != (HEADLINE_SIZE, HEADLINE_SIZE, 3) or not fields["accum_finite"]:
+        emit(label, **fields)
+        raise AssertionError(f"{label}: the headline run is wrong")
+    return img, fields
+
+
+def phase_headline(tmp):
+    """``run_headline``, the atrium at 1000x1000: ``main()`` in this process
+    at 16 spp in checkpoints of 8 (``headline_checks``), then
+    ``python -m tpu_pathtracer_torch.run_headline`` supervised
+    (``HEADLINE_SUPERVISE=1``) at 24 spp on the same checkpoint in a
+    process of its own, which must exit 0 having resumed at 16 and
+    rendered 8, with no restart."""
+    from tpu_pathtracer_torch.utils.image import read_ppm
+
+    d = os.path.join(tmp, "headline")
+    env = dict(HEADLINE_SPP=16, HEADLINE_CKPT_EVERY=8, HEADLINE_CKPT=os.path.join(d, "ck.npz"),
+               HEADLINE_OUT=os.path.join(d, "16.ppm"),
+               HEADLINE_LEDGER=os.path.join(d, "ledger.jsonl"))
+    row = headline_main(env)
+    _, fields = headline_checks("headline", row, 16, 8)
+    env.update(HEADLINE_SIZE=HEADLINE_SIZE, HEADLINE_SUPERVISE=1, HEADLINE_SPP=24,
+               HEADLINE_OUT=os.path.join(d, "24.ppm"))
+    sub_env = dict(os.environ, **{k: str(v) for k, v in env.items()})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_pathtracer_torch.run_headline"], cwd=ROOT,
+                          env=sub_env, capture_output=True, text=True, timeout=900)
+    sub_secs = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    sub = json.loads(out[-1]) if proc.returncode == 0 and out else {}
+    events = [ln for ln in out if '"supervisor"' in ln]
+    shape = list(read_ppm(sub["out"]).shape) if sub else None
+    emit("headline", scene=f"atrium {HEADLINE_SIZE}x{HEADLINE_SIZE}, 16 spp in checkpoints of "
+         "8 in this process, then resumed to 24 supervised in a subprocess", **fields,
+         pixel_samples_per_s=fields["ledger"]["samples_per_s"], supervised_rc=proc.returncode,
+         supervised_seconds=sub_secs, supervised_ledger=sub, supervisor_events=events,
+         supervised_frame_shape=shape)
+    if proc.returncode != 0 or sub.get("resumed_from_spp") != 16 \
+            or sub.get("spp_rendered_this_run") != 8 or events \
+            or shape != [HEADLINE_SIZE, HEADLINE_SIZE, 3]:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+        raise AssertionError("headline: the supervised resume is wrong")
+
+
+def frame_diff(a, b):
+    """u8 frames ``a`` against ``b``: share of values off by more than 1 and
+    by anything, RMSE, largest difference, each frame's channel means and
+    their largest difference."""
+    import numpy as np
+
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    d = np.abs(a - b)
+    ma, mb = a.reshape(-1, 3).mean(0), b.reshape(-1, 3).mean(0)
+    return dict(off_by_more_than_1=float((d > 1).mean()), any_difference=float((d > 0).mean()),
+                rmse=float(np.sqrt(((a - b) ** 2).mean())), max_abs=int(d.max()),
+                channel_means=ma.tolist(), ref_channel_means=mb.tolist(),
+                channel_mean_max_diff=float(np.abs(ma - mb).max()))
+
+
+def phase_headline_full(tmp):
+    """The JAX script's default workload through ``run_headline.main()``:
+    the atrium at 1000x1000 @ 1000 spp in checkpoints of 50
+    (``headline_checks``), its frame held against the JAX package's
+    committed seed-0 frame: at most 0.5% of u8 values off by more than 1
+    (the fp-noise rule of tests/test_torch_render.py) and every channel
+    mean within 0.1, printed beside the two JAX runs' own difference.  The
+    frame and ledger are kept in the git-ignored ``build/headline_full/``."""
+    from tpu_pathtracer_torch.utils.image import read_ppm
+
+    keep = os.path.join(ROOT, "build", "headline_full")
+    env = dict(HEADLINE_SPP=1000, HEADLINE_CKPT_EVERY=50,
+               HEADLINE_CKPT=os.path.join(tmp, "headline_full", "ck.npz"),
+               HEADLINE_OUT=os.path.join(keep, "atrium_1000x1000_1000spp.ppm"),
+               HEADLINE_LEDGER=os.path.join(keep, "ledger.jsonl"))
+    row = headline_main(env)
+    img, fields = headline_checks("headline_full", row, 1000, 50)
+    ref = read_ppm(HEADLINE_REF)
+    vs_ref = frame_diff(img, ref)
+    jax_runs = frame_diff(read_ppm(HEADLINE_EARLIER), ref)
+    emit("headline_full", scene=f"atrium {HEADLINE_SIZE}x{HEADLINE_SIZE} @ 1000 spp in "
+         "checkpoints of 50", **fields, pixel_samples_per_s=fields["ledger"]["samples_per_s"],
+         pass_seconds=[p["elapsed_s"] for p in row["progress"]],
+         vs_jax_frame=vs_ref, jax_runs_yardstick=jax_runs,
+         reference=os.path.relpath(HEADLINE_REF, ROOT))
+    if vs_ref["off_by_more_than_1"] > 0.005 or vs_ref["channel_mean_max_diff"] > 0.1:
+        raise AssertionError("headline_full: the frame is not within fp noise of the JAX frame")
+
+
 def phase_accumulate():
     """The persistent engine's accumulation at the render's shape (65,536
     lanes into 65,536 pixel rows, each idle lane into a drop row of its
@@ -2047,11 +2235,11 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 
 
 def run_only(names):
-    """The loop phases named (engine, homebrew, sharded) on their own, for
-    work on one loop: ``python3 chip_smoke.py engine homebrew``.  The last
-    line then names the phases run; only the full run ends with the
-    contract's line."""
-    unknown = set(names) - {"engine", "homebrew", "sharded"}
+    """The phases named (engine, homebrew, sharded, headline, headline_full)
+    on their own: ``python3 chip_smoke.py engine homebrew``.
+    ``headline_full`` runs only when named.  The last line then names the
+    phases run; only the full run ends with the contract's line."""
+    unknown = set(names) - {"engine", "homebrew", "sharded", "headline", "headline_full"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
     from tpu_pathtracer_torch.scene import fixtures
@@ -2070,6 +2258,10 @@ def run_only(names):
         if "sharded" in names:
             main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2", "rng"))
             phase_sharded(path, tmp, main_row, engine_row)
+        if "headline" in names:
+            phase_headline(tmp)
+        if "headline_full" in names:
+            phase_headline_full(tmp)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "phases_only": list(names)}), flush=True)
 
@@ -2177,6 +2369,7 @@ def main(only=()):
         phase_cli_txt(tmp)
         phase_renderer(path)
         phase_checkpoint(path, tmp, main_row)
+        phase_headline(tmp)
         phase_accumulate()
         phase_sharded(path, tmp, main_row, engine_row)
         phase_golden(tmp, phase="goldens_more", make="make_textured_cornell_gltf",

@@ -33,6 +33,7 @@ from tpu_pathtracer_torch.parallel.checkpoint import (
 from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from tpu_pathtracer_torch.utils.image import quantize_u8
 from test_torch_render import _assert_fp_noise
+from test_torch_scene import same_host_path
 
 torch.set_num_threads(1)
 
@@ -46,8 +47,10 @@ FIXTURES = {
 }
 
 
-def _both(path, w=16, h=16):
-    """The file loaded by each package at w x h: (JAX scene, port scene)."""
+def _both(path, monkeypatch, w=16, h=16):
+    """The file loaded by each package at w x h, both on the same host build
+    path (``same_host_path``): (JAX scene, port scene)."""
+    same_host_path(monkeypatch)
     js = jax_parse(path, w / h)
     ts = parse_gltf_scene(path, w / h)
     return (dataclasses.replace(js, camera=js.camera.with_dims(w, h)),
@@ -121,21 +124,21 @@ def test_torch_checkpoint_of_other_scene_rejected(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_torch_fingerprint_equals_jax(tmp_path, name):
+def test_torch_fingerprint_equals_jax(tmp_path, monkeypatch, name):
     """The same integer as the JAX package's scene_fingerprint on the same
     file, under the default config and another estimator config."""
-    js, ts = _both(FIXTURES[name](str(tmp_path / name / "scene.gltf")))
+    js, ts = _both(FIXTURES[name](str(tmp_path / name / "scene.gltf")), monkeypatch)
     for kw in ({}, {"eps": 2e-4, "jitter": "sobol", "vndf_factor": 0.5}):
         assert scene_fingerprint(ts, RenderConfig(**kw)) == jax_ck.scene_fingerprint(
             js, jax_cfg.RenderConfig(**kw)), kw
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])
-def test_torch_fingerprint_ignores_execution_knobs(tmp_path, package):
+def test_torch_fingerprint_ignores_execution_knobs(tmp_path, monkeypatch, package):
     """Execution knobs leave the fingerprint alone, an estimator field
     (eps) changes it: in both packages, with the same knob list."""
     assert jax_ck._EXECUTION_KNOBS == _EXECUTION_KNOBS
-    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")))
+    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")), monkeypatch)
     scene, cfg, fingerprint = {
         "jax": (js, jax_cfg, jax_ck.scene_fingerprint),
         "torch": (ts, torch_cfg, scene_fingerprint),
@@ -170,12 +173,12 @@ def test_torch_render_state_file_format(tmp_path):
     assert jax_ck.RenderState.load(str(tmp_path / "legacy.npz")).fingerprint == 0
 
 
-def test_torch_resumes_jax_checkpoint(tmp_path, capsys):
+def test_torch_resumes_jax_checkpoint(tmp_path, monkeypatch, capsys):
     """The JAX package renders 4 of 8 samples to a file; the port resumes it
     to 8 in one pass (no rejection, no restart).  Against the JAX package's
     uninterrupted render by the fp-noise rule (the two packages can flip an
     isolated Russian-roulette coin)."""
-    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")))
+    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")), monkeypatch)
     ck = str(tmp_path / "ck.npz")
     jax_ck.render_with_checkpoints(js, spp=4, seed=9, checkpoint_path=ck, checkpoint_every=4)
     passes = []
@@ -185,10 +188,10 @@ def test_torch_resumes_jax_checkpoint(tmp_path, capsys):
     _assert_fp_noise(_u8(jax_render(js, spp=8, seed=9)), _u8(got))
 
 
-def test_torch_checkpoint_resumed_by_jax(tmp_path, capsys):
+def test_torch_checkpoint_resumed_by_jax(tmp_path, monkeypatch, capsys):
     """The reverse: the port writes 4 of 8 samples, the JAX package resumes
     it to 8 in one pass; against the port's uninterrupted render."""
-    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")))
+    js, ts = _both(make_cornell_gltf(str(tmp_path / "c.gltf")), monkeypatch)
     ck = str(tmp_path / "ck.npz")
     render_with_checkpoints(ts, spp=4, seed=9, checkpoint_path=ck, checkpoint_every=4)
     passes = []

@@ -32,7 +32,7 @@ from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 from tpu_pathtracer_torch.utils.image import quantize_u8, read_ppm
 from test_torch_chunk_intersect import _scene
 from test_torch_render import _assert_fp_noise
-from test_torch_scene import jax_config, jax_scene_arrays
+from test_torch_scene import jax_config, jax_scene_arrays, same_host_path
 
 torch.set_num_threads(1)
 
@@ -148,13 +148,14 @@ def test_torch_dirhint_and_cell_keys_match_jax_directly():
 
 
 @pytest.mark.parametrize("fmt", ["png", "hdr"])
-def test_torch_env_radiance_matches_jax(tmp_path, fmt):
+def test_torch_env_radiance_matches_jax(tmp_path, monkeypatch, fmt):
     """The equirect lookup on the loaded atlas (flat and quad pools agree
     already) for random directions, the poles and the +-x seam: abs <= 1e-5,
     since atan2 and asin round differently in the two libraries."""
     env = (make_env_image if fmt == "png" else make_env_hdr)(str(tmp_path / f"env.{fmt}"))
     config = RenderConfig(use_env_map=True, env_map_path=env, env_map_intensity=1.7)
     path = make_cornell_gltf(str(tmp_path / "c" / "c.gltf"))
+    same_host_path(monkeypatch)
     js = jax_parse(path, 1.0, jax_config(config))
     ts = parse_gltf_scene(path, 1.0, config)
     assert ts.has_env and ts.env_tex == int(js.env_tex)

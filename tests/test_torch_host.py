@@ -26,6 +26,7 @@ from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene as torch_parse
 from tpu_pathtracer_torch.utils import fuzz as tfuzz
 from tpu_pathtracer_torch.utils import hdr as thdr
 from tpu_pathtracer_torch.utils import metrics as tmetrics
+from test_torch_scene import same_host_path
 
 
 def _fields(cls):
@@ -115,10 +116,12 @@ def _soup(seed, n=700):
 @pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])
 def test_torch_accel_matches_jax(use_native, monkeypatch):
     """The spatial build's five functions return equal arrays to the JAX
-    package's, through the native packer and through numpy."""
+    package's, through the native packer and through numpy (both packages
+    on the same path: ``same_host_path``)."""
     if use_native:
         monkeypatch.delenv("TPU_PATHTRACER_NO_NATIVE", raising=False)
         assert native.load_library() is not None
+        same_host_path(monkeypatch)
     else:
         monkeypatch.setenv("TPU_PATHTRACER_NO_NATIVE", "1")
     assert taccel.LEAF_SIZE == jaccel.LEAF_SIZE
@@ -211,13 +214,14 @@ def test_torch_fuzz_files_match_jax(tmp_path, name, kwargs):
 
 
 @pytest.mark.parametrize("name,kwargs", FUZZ, ids=FUZZ_IDS)
-def test_torch_loader_matches_jax_on_fuzz_scenes(tmp_path, name, kwargs):
+def test_torch_loader_matches_jax_on_fuzz_scenes(tmp_path, monkeypatch, name, kwargs):
     """The port's glTF loader on each fuzz scene and on the maximal asset
     (strips, instanced and nested nodes, raw matrices, u8/u16/u32 indices,
     JPEG and PNG textures, every texture slot): every array it holds equals
     the JAX loader's, bit for bit, and so do the static fields."""
     from test_torch_scene import jax_scene_arrays, scene_arrays
 
+    same_host_path(monkeypatch)
     path = getattr(tfuzz, name)(str(tmp_path / "s.gltf"), **kwargs)
     js, ts = jax_parse(path, 1.5), torch_parse(path, 1.5)
     want, statics = jax_scene_arrays(js)
