@@ -21,7 +21,15 @@ plain-torch twin on the inputs of the real paths, 65,536-ray batches:
                    forced bins overflow;
   b3               the light-pdf kernel on the lit-banner atrium (the
                    atrium with its green banners emissive: ~24,600 lights
-                   in 193 clusters).
+                   in 193 clusters);
+  shading          K1, the flat light-cluster pdf, on the atrium's and the
+                   env field's rays (its twin's zero pattern, relative
+                   error <= 1e-5), and K2, ``hit_info``'s row gather and
+                   texture fetch, on those, the textured Cornell box and an
+                   asset that uses every texture slot, with the quad and the
+                   flat texel pool (within 2 ulp of its twin; 0 so far);
+                   both timed beside their twins, K1 also beside B3 over a
+                   full worklist.
 
 Then it renders, each at 512x512 @ 16 spp with the launch counters set to 0
 just before and read just after:
@@ -98,8 +106,9 @@ plain torch):
                    160x120 in a process of their own.
 
 Every phase prints one JSON line; any failure raises, so the script exits
-non-zero without the final line.  ``python3 chip_smoke.py engine homebrew
-sharded headline`` (any of them) runs only those phases after the build;
+non-zero without the final line.  ``python3 chip_smoke.py shading engine
+homebrew sharded headline`` (any of them) runs only those phases after the
+build;
 ``python3 chip_smoke.py headline_full`` runs the JAX package's headline
 workload (the atrium at 1000x1000 @ 1000 spp in checkpoints of 50) and
 holds its frame against the JAX package's committed frame by the fp-noise
@@ -250,12 +259,14 @@ def phase_build():
 
 def counters():
     """Kernel name -> the wrapper that counts its launches."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
-    from tpu_pathtracer_torch.ops import rng
+    from tpu_pathtracer_torch.ops import intersect, rng
 
     return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
             "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
-            "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key}
+            "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key,
+            "k1": intersect.light_pdf_flat, "k2": pt.hit_info}
 
 
 def reset_launches():
@@ -273,7 +284,6 @@ def make_inputs(tmp, lit_banners=False):
     import dataclasses
 
     from tpu_pathtracer_torch.models import pathtracer as pt
-    from tpu_pathtracer_torch.ops.rng import jitter_uniforms
     from tpu_pathtracer_torch.scene import fixtures, gltf
 
     try:
@@ -297,8 +307,19 @@ def make_inputs(tmp, lit_banners=False):
          triangles=int(scene.valid.sum()), chunks=scene.chunk_woop.shape[0],
          lights=scene.lights.count, light_clusters=scene.lights.cluster_woop.shape[0],
          gen_seconds=round(t_gen, 3), parse_seconds=round(t_parse, 3))
+    return path, textured, t_gen, scene, bounce_rays(scene, config)
+
+
+def bounce_rays(scene, config, stride=1):
+    """65,536 primary rays of the scene, through every ``stride``-th pixel
+    from the first, and one bounce of their sorted, compacted secondaries
+    (the surviving lanes' hit points and new directions: the light pdf's
+    inputs; dead lanes parked at 1e30)."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.ops.rng import jitter_uniforms
+
     n = N_RAYS
-    pids = torch.arange(n, dtype=torch.int32, device=DEV)
+    pids = torch.arange(n, dtype=torch.int32, device=DEV) * stride
     o, d = pt.gen_rays(scene.camera, pids, jitter_uniforms(0, 0, pids))
     alive = torch.ones(n, dtype=torch.bool, device=DEV)
     draws = pt.bounce_draws(0, 0, 0, pids, config)
@@ -309,7 +330,7 @@ def make_inputs(tmp, lit_banners=False):
     perm = torch.argsort(key, stable=True)
     o2, d2, alive2 = o2[perm], d2[perm], alive2[perm]
     o2 = torch.where(alive2[:, None], o2, torch.full_like(o2, 1e30))
-    return path, textured, t_gen, scene, {"primary": (o, d), "secondary": (o2, d2)}
+    return {"primary": (o, d), "secondary": (o2, d2)}
 
 
 def check_b1(rays_name, mode, args):
@@ -993,10 +1014,10 @@ def phase_engine(path, tmp):
     t_phase = time.perf_counter()
     config = RenderConfig(compaction=False, jitter="sobol", lowdisc="sobol")
     row = phase_render("engine", "atrium 512x512@4spp scan engine, Sobol", path, tmp,
-                       ("b1", "b2", "rng"), config=config, spp=4)
+                       ("b1", "b2", "rng", "k1", "k2"), config=config, spp=4)
     if row["measured_rays"] is not None:
         raise AssertionError("the scan engine reported measured rays")
-    scene = load_atrium(path)
+    scene = load_scene(path)
 
     def scan(eager, spp=4, s=scene):
         pt.scan_accum.bounces = 0
@@ -1111,6 +1132,230 @@ def phase_b3(scene, rays_sets):
     return worst, timing
 
 
+# Lane operations a ray of K2 (csrc/shade_kernels.cu shade_gather_kernel),
+# counted from the source: the two normals, the inside test, the flip and
+# the barycentric weights ~65; the UV and its wrap ~20 when a slot is
+# fetched; a slot's addresses and four-channel bilinear lerp ~70, and ~240
+# more for a gamma slot's 12 powf (~20 operations each); the normal map ~75.
+SHADE_OPS = {"base": 65, "uv": 20, "slot": 70, "gamma": 240, "normal": 75}
+# K2's record: field -> its columns of the [R, 16] record (None: one column).
+RECORD = (("normal", 0, 3), ("shading_normal", 3, 6), ("color", 6, 10),
+          ("emission", 10, 13), ("metallic", 13, None), ("roughness", 14, None),
+          ("ior", 15, None))
+
+
+def ulps(a, b):
+    """Elementwise distance of two float32 tensors in units in the last
+    place (two NaNs: 0; a NaN against a number: 2^31)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    diff = (ordered(a) - ordered(b)).abs()
+    return torch.where(nan_a & nan_b, 0, torch.where(nan_a ^ nan_b, 2**31, diff))
+
+
+def flat_pdf_args(scene, o, d):
+    lights = scene.lights
+    return (o.contiguous(), d.contiguous(), lights.cluster_woop.contiguous(),
+            lights.cluster_k.contiguous(), lights.count, EPS)
+
+
+def phase_light_pdf_flat(label, scene, rays_sets):
+    """K1 against its twin ``light_pdf_sum_flat`` on a scene's primaries and
+    secondaries: the same zero pattern (the Woop test rounds op for op
+    alike), relative error <= 1e-5 on the non-zero values (every term is
+    >= 0; only the order of a cluster's sum differs), the kernel bit-equal
+    across two runs.  Returns (max abs error, non-zero values)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops.intersect import light_pdf_sum_flat
+
+    worst, nonzero = 0.0, 0
+    for name, (o, d) in rays_sets.items():
+        args = flat_pdf_args(scene, o, d)
+        k1 = kernels.light_pdf_flat(*args)
+        k2 = kernels.light_pdf_flat(*args)
+        p = light_pdf_sum_flat(*args)
+        torch.cuda.synchronize()
+        nz = p != 0
+        pattern = int(((k1 != 0) != nz).sum())
+        rel = float(((k1[nz] - p[nz]).abs() / p[nz]).max()) if nz.any() else 0.0
+        err = float((k1 - p).abs().max())
+        worst, nonzero = max(worst, err), nonzero + int(nz.sum())
+        cw = args[2]
+        emit("light_pdf_flat", scene=label, rays=name, clusters=cw.shape[0],
+             lights=args[4], live_lanes=int((~torch.isnan(cw).any(dim=1)).sum()),
+             nonzero=int(nz.sum()), pattern_mismatch=pattern, max_rel_err=rel, max_abs_err=err,
+             bit_equal_to_twin=int((k1 != p).sum()) == 0, deterministic=bool(torch.equal(k1, k2)))
+        if pattern or rel > 1e-5 or not torch.equal(k1, k2) or not torch.isfinite(k1).all():
+            raise AssertionError(f"K1 disagrees with its twin ({label}, {name})")
+    return worst, nonzero
+
+
+def fetched_slots(scene, config):
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    return [k for k, used in enumerate(pt._fetched_slots(scene, config)) if used]
+
+
+def shade_args(scene, config, d, hit):
+    return (scene.shade_attrs, hit.tri.contiguous(), hit.beta.contiguous(),
+            hit.gamma.contiguous(), d.contiguous(), scene.atlas,
+            sum(1 << k for k in fetched_slots(scene, config)))
+
+
+def phase_shade_gather(label, scene, config, rays_sets):
+    """K2 against its twin ``hit_info_plain`` on the closest hits of a
+    scene's primaries and secondaries (missed rays included, tri 0):
+    ``inside`` exact and every float of the record within 2 ulp of the
+    twin's (the goal is 0: the same operations in the same order).  Returns
+    (max abs error, largest ulp difference)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    worst, worst_ulp = 0.0, 0
+    for name, (o, d) in rays_sets.items():
+        hit = pt.scene_closest_hit(scene, o, d, EPS, config.tuning)
+        args = shade_args(scene, config, d, hit)
+        rec, inside = kernels.shade_gather(*args)
+        want = pt.hit_info_plain(scene, d, hit, config)
+        torch.cuda.synchronize()
+        fields = {}
+        for key, a, b in RECORD:
+            got = rec[:, a:b] if b else rec[:, a]
+            ref = want[key].reshape(got.shape)
+            same_nan = torch.isnan(got) & torch.isnan(ref)
+            bits = (got.contiguous().view(torch.int32) != ref.contiguous().view(torch.int32))
+            fin = torch.isfinite(got) & torch.isfinite(ref)
+            fields[key] = {"bit_mismatch": int((bits & ~same_nan).sum()),
+                           "max_ulp": int(ulps(got, ref).max()),
+                           "nan": int(torch.isnan(ref).sum())}
+            if fin.any():
+                worst = max(worst, float((got[fin] - ref[fin]).abs().max()))
+        bad_inside = int((inside != want["inside"]).sum())
+        max_ulp = max(f["max_ulp"] for f in fields.values())
+        worst_ulp = max(worst_ulp, max_ulp)
+        emit("shade_gather", scene=label, rays=name, slots=fetched_slots(scene, config),
+             quad_pool=scene.atlas.quad is not None, textures=scene.atlas.offset.shape[0],
+             hits=int(hit.hit.sum()), misses=int((~hit.hit).sum()), inside=int(inside.sum()),
+             inside_mismatch=bad_inside, max_ulp=max_ulp, fields=fields)
+        if bad_inside or max_ulp > 2:
+            raise AssertionError(f"K2 disagrees with its twin ({label}, {name})")
+    return worst, worst_ulp
+
+
+def shade_work(scene, config, d, hit):
+    """(lane operations, bytes) K2 needs on these rays: each input byte read
+    once, so the rows and texels of this run's hits counted once each (a
+    quad pool: one 64-byte row per (ray, slot) corner set), the record and
+    inside written once."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.ops import texture
+
+    slots = fetched_slots(scene, config)
+    r = d.shape[0]
+    per_ray = SHADE_OPS["base"] + (SHADE_OPS["uv"] if slots else 0)
+    per_ray += sum(SHADE_OPS["slot"] + (SHADE_OPS["gamma"] if k < 2 else 0) for k in slots)
+    per_ray += SHADE_OPS["normal"] if 3 in slots else 0
+    n_bytes = nbytes(hit.tri, hit.beta, hit.gamma, d) + r * (16 * 4 + 1)
+    n_bytes += int(torch.unique(hit.tri).numel()) * 48 * 4
+    if slots:
+        atlas = scene.atlas
+        row = scene.shade_attrs[hit.tri.long()]
+        ids = row[:, 43:47].to(torch.int32)[:, slots]
+        uv = pt._interp_flat(row, 18, 2, hit.beta, hit.gamma)
+        off, w, _, px, py, px1, py1, _, _ = texture._corners(atlas, ids, uv)
+        if atlas.quad is not None:
+            n_bytes += int(torch.unique(off + px + py * w).numel()) * 64
+        else:
+            idx = torch.cat([off + px + py * w, off + px + py1 * w, off + px1 + py * w,
+                             off + px1 + py1 * w])
+            n_bytes += int(torch.unique(idx).numel()) * 16
+        n_bytes += int(torch.unique(ids).numel()) * 12
+    return r * per_ray, n_bytes
+
+
+def phase_shading(tmp, scene, rays_sets, field, env):
+    """Kernels K1 (the flat light-cluster pdf) and K2 (``hit_info``'s row
+    gather and texture fetch) against their twins on real rays: K1 on the
+    atrium's and the env field's (camera light triangle) primaries and
+    secondaries; K2 on those, on the textured Cornell box, and on the
+    maximal asset (every texture slot used) with the corner-quad pool (the
+    loader's default, as in every other scene here) and with the flat
+    texel pool.  Then each timed on the atrium's secondaries beside
+    its twin, and K1 beside the other route to the same sum: B3 with a full
+    worklist (every tile, every cluster).  Returns (errs, ulp, times, work,
+    b3 route ms)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+    from tpu_pathtracer_torch.ops.intersect import light_pdf_sum_flat
+    from tpu_pathtracer_torch.scene import fixtures
+    from tpu_pathtracer_torch.utils.fuzz import make_maximal_gltf
+
+    config = RenderConfig()
+    k1_err, nonzero = phase_light_pdf_flat("atrium", scene, rays_sets)
+    if nonzero == 0:
+        raise AssertionError("K1: no atrium ray reaches a light")
+    k2_err, ulp = phase_shade_gather("atrium", scene, config, rays_sets)
+    # The other scenes' rays sample the whole frame (every 4th pixel).
+    stride = W * H // N_RAYS
+    env_config = RenderConfig(use_env_map=True, env_map_path=env, add_light_triangle=True)
+    fscene = load_scene(field, env_config)
+    frays = bounce_rays(fscene, env_config, stride)
+    errs = {"k1": max(k1_err, phase_light_pdf_flat("env field", fscene, frays)[0])}
+    e, u = phase_shade_gather("env field", fscene, env_config, frays)
+    k2_err, ulp = max(k2_err, e), max(ulp, u)
+    del fscene, frays
+    corn = load_scene(fixtures.make_textured_cornell_gltf(os.path.join(tmp, "tcornell", "c.gltf")))
+    e, u = phase_shade_gather("textured Cornell", corn, config, bounce_rays(corn, config, stride))
+    k2_err, ulp = max(k2_err, e), max(ulp, u)
+    maximal = load_scene(make_maximal_gltf(os.path.join(tmp, "maximal", "m.gltf")))
+    if fetched_slots(maximal, config) != [0, 1, 2, 3]:
+        raise AssertionError(f"the maximal asset must use every texture slot: {maximal.tex_slots}")
+    if maximal.atlas.quad is None:
+        raise AssertionError("the maximal asset's atlas must have its quad pool")
+    mrays = bounce_rays(maximal, config, stride)
+    for pool in ("quad", "flat"):
+        m = maximal if pool == "quad" else dataclasses.replace(
+            maximal, atlas=dataclasses.replace(maximal.atlas, quad=None))
+        e, u = phase_shade_gather(f"maximal asset ({pool} pool)", m, config, mrays)
+        k2_err, ulp = max(k2_err, e), max(ulp, u)
+    errs["k2"] = k2_err
+    del corn, maximal, mrays, m
+
+    o, d = rays_sets["secondary"]
+    args = flat_pdf_args(scene, o, d)
+    hit = pt.scene_closest_hit(scene, o, d, EPS, config.tuning)
+    sargs = shade_args(scene, config, d, hit)
+    times = {"k1": (queued_ms(lambda: kernels.light_pdf_flat(*args), 50),
+                    sync_ms(lambda: light_pdf_sum_flat(*args), 10)),
+             "k2": (queued_ms(lambda: kernels.shade_gather(*sargs), 50),
+                    sync_ms(lambda: pt.hit_info_plain(scene, d, hit, config), 10))}
+    # B3 with every tile's worklist holding every cluster, divided as K1 divides.
+    cw, ck = args[2], args[3]
+    t_tiles = N_RAYS // ci.RAY_TILE
+    idx = torch.arange(cw.shape[0], dtype=torch.int32, device=DEV).repeat(t_tiles, 1).contiguous()
+    counts = torch.full((t_tiles,), cw.shape[0], dtype=torch.int32, device=DEV)
+    b3_args = (ci.pack_rays(o, d), cw, ck, idx, counts, EPS)
+    b3_ms = queued_ms(lambda: kernels.light_pdf(*b3_args), 50)
+    k1 = kernels.light_pdf_flat(*args)
+    b3 = kernels.light_pdf(*b3_args) / float(max(args[4], 1))
+    nz = k1 != 0
+    live = int((~torch.isnan(cw).any(dim=1)).sum())
+    work = {"k1": (N_RAYS * live * PDF_OPS, nbytes(o, d, cw, ck) + 4 * N_RAYS),
+            "k2": shade_work(scene, config, d, hit)}
+    emit("shading_timing", rays="atrium secondary", k1_ms=times["k1"][0],
+         k1_plain_ms=times["k1"][1], k1_b3_route_ms=b3_ms,
+         b3_route_pattern_mismatch=int(((b3 != 0) != nz).sum()),
+         b3_route_max_rel_err=float(((b3[nz] - k1[nz]).abs() / k1[nz]).max()) if nz.any() else 0.0,
+         k2_ms=times["k2"][0], k2_plain_ms=times["k2"][1], k2_slots=fetched_slots(scene, config),
+         k2_max_ulp=ulp, nvidia_smi=card_line())
+    return errs, ulp, times, work, b3_ms
+
+
 def phase_goldens_env_lt(tmp):
     """Cornell 64x64 @ 64 spp with the environment map (PNG, Radiance HDR)
     and with the camera light triangle, against the reference's 4096-spp
@@ -1159,7 +1404,7 @@ def phase_sort_keys(path, hint):
 
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig, render
 
-    scene = load_atrium(path)
+    scene = load_scene(path)
     emit("sort_keys", sort_key="hint", **{k: v for k, v in hint.items() if k in (
         "seconds_render", "measured_rays", "pixel_samples_per_s", "measured_mrays_per_s")},
         **{k: v for k, v in hint.items() if k.startswith("launches_")})
@@ -1464,12 +1709,13 @@ def phase_renderer(path):
     return launches
 
 
-def load_atrium(path):
-    import dataclasses
-
+def load_scene(path, config=None):
+    """A glTF scene (the atrium unless another is named) on the card, with
+    the camera at W x H, loaded under ``config`` (default RenderConfig)."""
+    from tpu_pathtracer_torch.config import DEFAULT_CONFIG
     from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 
-    scene = parse_gltf_scene(path, W / H)
+    scene = parse_gltf_scene(path, W / H, config or DEFAULT_CONFIG)
     return dataclasses.replace(scene, camera=scene.camera.with_dims(W, H)).to(DEV)
 
 
@@ -1492,7 +1738,7 @@ def phase_checkpoint(path, tmp, main_row):
 
     from tpu_pathtracer_torch.parallel.checkpoint import render_with_checkpoints
 
-    scene = load_atrium(path)
+    scene = load_scene(path)
     half, whole = os.path.join(tmp, "ck", "resumed.npz"), os.path.join(tmp, "ck", "whole.npz")
     every = SPP // 4
     secs = {}
@@ -1614,7 +1860,7 @@ def headline_checks(label, row, spp, every, resumed_from=0):
             or (line["resumed_from_spp"], line["spp_rendered_this_run"]) != (
                 resumed_from, spp - resumed_from) \
             or passes != want_passes or not flat or not 1 <= row["graph_captures"] <= 2 \
-            or any(row["launches"][k] == 0 for k in ("b1", "b2", "rng")) \
+            or any(row["launches"][k] == 0 for k in ("b1", "b2", "rng", "k1", "k2")) \
             or img.shape != (HEADLINE_SIZE, HEADLINE_SIZE, 3) or not fields["accum_finite"]:
         emit(label, **fields)
         raise AssertionError(f"{label}: the headline run is wrong")
@@ -1757,7 +2003,7 @@ def phase_sharded(path, tmp, main_row, engine_row):
     from tpu_pathtracer_torch.parallel.mesh import TIMEOUT, make_mesh, render_sharded
     from tpu_pathtracer_torch.parallel.multihost import render_multihost
 
-    scene = load_atrium(path)
+    scene = load_scene(path)
     dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl_store"),
                             world_size=1, rank=0, timeout=TIMEOUT)
     try:
@@ -2002,11 +2248,10 @@ def phase_graph(path, lit_path, field, env):
     from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.models.graph import CapturedBlock
     from tpu_pathtracer_torch.renderer import Renderer
-    from tpu_pathtracer_torch.scene.gltf import parse_gltf_scene
 
     config = RenderConfig()
-    scene = load_atrium(path)
-    rows = check_loops("atrium", scene, SPP, config, ("b1", "b2", "rng"),
+    scene = load_scene(path)
+    rows = check_loops("atrium", scene, SPP, config, ("b1", "b2", "rng", "k1", "k2"),
                        order=("eager", "graph", "graph", "eager"))
     useful = rows["eager"][0]["iterations"]
     eager_ms = [r["seconds"] * 1e3 / useful for r in rows["eager"]]
@@ -2056,14 +2301,14 @@ def phase_graph(path, lit_path, field, env):
          nvidia_smi=card_line())
 
     check_loops("atrium twopass", scene, 4, RenderConfig(tuning=IntersectTuning(mode="twopass")),
-                ("b1", "b6", "rng"))
+                ("b1", "b6", "rng", "k1", "k2"))
     del scene
     pt.clear_compiled_loops()
-    check_loops("lit-banner atrium", load_atrium(lit_path), 4, config, ("b1", "b2", "b3", "rng"))
+    check_loops("lit-banner atrium", load_scene(lit_path), 4, config,
+                ("b1", "b2", "b3", "rng", "k2"))
     env_config = RenderConfig(use_env_map=True, env_map_path=env, add_light_triangle=True)
-    fscene = parse_gltf_scene(field, W / H, env_config)
-    fscene = dataclasses.replace(fscene, camera=fscene.camera.with_dims(W, H)).to(DEV)
-    check_loops("env field", fscene, 4, env_config, ("b1", "b2", "rng"))
+    fscene = load_scene(field, env_config)
+    check_loops("env field", fscene, 4, env_config, ("b1", "b2", "rng", "k1", "k2"))
     del fscene
     pt.clear_compiled_loops()
 
@@ -2201,6 +2446,17 @@ LIBRARY_NOTE = {
 }
 
 
+# K1 and K2 in the kernel line: (counter, name, replaces, note, why no library_ms).
+SHADING_ROWS = (
+    ("k1", "flat light-cluster pdf (K1)", "tpu_pathtracer/ops/intersect.py:270",
+     "light_pdf_sum_flat, fused by XLA on the TPU: no Pallas kernel",
+     "none: a masked sum of Woop terms over the lights of each cluster"),
+    ("k2", "hit record and texture fetch (K2)", "tpu_pathtracer/models/pathtracer.py:196",
+     "hit_info with ops/texture.py:82 sample_many, fused by XLA on the TPU: no Pallas kernel",
+     "none: a row gather fused with normals, bilinear texture taps and a normal map"),
+)
+
+
 def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
     """{kernel: (pair tests, lane operations per pair, bytes)} at the timing
     shapes, counted from this run's inputs: B1 the (ray, chunk) pairs of
@@ -2235,11 +2491,12 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 
 
 def run_only(names):
-    """The phases named (engine, homebrew, sharded, headline, headline_full)
-    on their own: ``python3 chip_smoke.py engine homebrew``.
+    """The phases named (shading, engine, homebrew, sharded, headline,
+    headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
     ``headline_full`` runs only when named.  The last line then names the
     phases run; only the full run ends with the contract's line."""
-    unknown = set(names) - {"engine", "homebrew", "sharded", "headline", "headline_full"}
+    unknown = set(names) - {"shading", "engine", "homebrew", "sharded", "headline",
+                            "headline_full"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
     from tpu_pathtracer_torch.scene import fixtures
@@ -2250,13 +2507,21 @@ def run_only(names):
             textured = True
         except ImportError:
             textured = False
+        if "shading" in names:
+            _, _, _, scene, rays_sets = make_inputs(tmp)
+            field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
+                                                    n_spheres=64, subdiv=3, textured=textured)
+            phase_shading(tmp, scene, rays_sets, field,
+                          fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr")))
+            del scene, rays_sets
         path = fixtures.make_atrium_gltf(os.path.join(tmp, "atrium", "atrium.gltf"), detail=2,
                                          textured=textured)
         engine_row = phase_engine(path, tmp) if {"engine", "sharded"} & set(names) else None
         if "homebrew" in names:
             phase_homebrew(tmp)
         if "sharded" in names:
-            main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2", "rng"))
+            main_row = phase_render("main", "atrium 512x512@16spp", path, tmp,
+                                    ("b1", "b2", "rng", "k1", "k2"))
             phase_sharded(path, tmp, main_row, engine_row)
         if "headline" in names:
             phase_headline(tmp)
@@ -2290,6 +2555,12 @@ def main(only=()):
         b7_err, b7_args = phase_b7(scene, rays_sets)
         phase_modes(scene, rays_sets, brutes)
         phase_tile256(scene, brutes, rays_sets)
+        t0 = time.perf_counter()
+        field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
+                                                n_spheres=64, subdiv=3, textured=textured)
+        env = fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr"))
+        field_gen = time.perf_counter() - t0
+        errs_k, k2_ulp, times_k, work_k, k1_b3_ms = phase_shading(tmp, scene, rays_sets, field, env)
 
         # Kernel vs twin time at the main paths' shapes: the initial gated
         # activity pass, the residual item pass, the first-entered-group
@@ -2348,17 +2619,12 @@ def main(only=()):
 
         phase_golden(tmp)
         phase_goldens_env_lt(tmp)
-        main_row = phase_render("main", "atrium 512x512@16spp", path, tmp, ("b1", "b2", "rng"),
-                                gen_seconds=gen_seconds)
+        main_row = phase_render("main", "atrium 512x512@16spp", path, tmp,
+                                ("b1", "b2", "rng", "k1", "k2"), gen_seconds=gen_seconds)
         lit_row = phase_render("lights_main", "lit-banner atrium 512x512@16spp", lit_path, tmp,
-                               ("b1", "b2", "b3", "rng"), gen_seconds=lit_gen)
-        t0 = time.perf_counter()
-        field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
-                                                n_spheres=64, subdiv=3, textured=textured)
-        env = fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr"))
-        field_gen = time.perf_counter() - t0
+                               ("b1", "b2", "b3", "rng", "k2"), gen_seconds=lit_gen)
         phase_render("env_main", "sphere field + HDR env map + light triangle 512x512@16spp",
-                     field, tmp, ("b1", "b2"), gen_seconds=field_gen,
+                     field, tmp, ("b1", "b2", "k1", "k2"), gen_seconds=field_gen,
                      config=RenderConfig(use_env_map=True, env_map_path=env,
                                          add_light_triangle=True))
         phase_graph(path, lit_path, field, env)
@@ -2424,6 +2690,17 @@ def main(only=()):
         "launch_intercept_ms": rng_fits["bounce"][0],
         "ns_per_1k_lanes": rng_fits["bounce"][1] * 1e9,
         "work": {"ops_by_pipe": {k: v for k, (v, _) in pipes.items()}, "bytes": n_bytes}})
+    for k, name, replaces, note, library in SHADING_ROWS:
+        ops, n_bytes = work_k[k]
+        bound_ms, bound_by = bound({"fp32": (ops, 128)}, n_bytes)
+        ms, plain_ms = times_k[k]
+        rows.append({
+            "name": name, "route": "cuda", "source": "tpu_pathtracer_torch/csrc/shade_kernels.cu",
+            "replaces": replaces, "replaces_note": note, "launches": main_row[f"launches_{k}"],
+            "max_abs_err": errs_k[k], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
+            "library_note": library, "work": {"ops": ops, "bytes": n_bytes},
+            **({"b3_route_ms": k1_b3_ms} if k == "k1" else {"max_ulp": k2_ulp})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ machines without CUDA.
 The functions below check device, dtype, shape and contiguity, allocate the
 outputs, launch, and raise when the launch reports a CUDA error.  The
 dispatching wrappers with their plain twins and launch counters live in
-``ops/chunk_intersect.py`` (B1-B7) and ``ops/rng.py`` (the threefry draws).
+``ops/chunk_intersect.py`` (B1-B7), ``ops/rng.py`` (the threefry draws),
+``ops/intersect.py`` (K1, the flat light-cluster pdf) and
+``models/pathtracer.py`` (K2, ``hit_info``'s row gather and texture fetch).
 No launch makes a runtime call that a CUDA graph capture refuses: B2's and
 B6's persistent grids (and B6's shared-memory attribute) are set at their
 first launch and kept.
@@ -28,6 +30,7 @@ import subprocess
 import time
 import weakref
 
+import numpy as np
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -57,6 +60,10 @@ LIBRARIES = {
     "rng_kernels": {
         # key words, then sample, depth, pixel: (array, device scalar, constant) each
         "tpt_uniforms": [_P, _P, _U, _U] + [_P, _P, _U] * 3 + [_I, _I, _P, _P],
+    },
+    "shade_kernels": {
+        "tpt_light_pdf_flat": [_P] * 4 + [_I] * 3 + [_F, _F] + [_P, _P],
+        "tpt_shade_gather": [_P] * 10 + [_I, _I] + [_P] * 3,
     },
 }
 
@@ -457,3 +464,70 @@ def uniforms(k0, k1, sample, depth, pixel, n_draws: int, sample_base=0, pixel_ba
         )
     _raise_on(rc, "uniforms")
     return out
+
+
+# K1 stages every light of its clusters in shared memory: at most this many,
+# in at most FLAT_CLUSTERS clusters.
+FLAT_LIGHTS, FLAT_CLUSTERS = 512, 4
+
+
+def light_pdf_flat(origin, direction, cluster_woop, cluster_k, light_count: int, min_dst):
+    """Launch K1 (contract: ``ops.intersect.light_pdf_sum_flat``): the [R]
+    all-hits light pdf over at most 4 clusters, already divided by the
+    light count (as the twin does on the card: a product with the count's
+    float32 reciprocal)."""
+    dev = origin.device
+    r = origin.shape[0]
+    c, _, cw = cluster_woop.shape
+    if not 0 < c <= FLAT_CLUSTERS or cw % 32 or c * cw > FLAT_LIGHTS:
+        raise ValueError(f"light_pdf_flat: clusters={c} cw={cw} (want 1-{FLAT_CLUSTERS} "
+                         f"clusters, cw % 32 == 0, at most {FLAT_LIGHTS} lights)")
+    _check(origin, "origin", torch.float32, (r, 3), dev)
+    _check(direction, "direction", torch.float32, (r, 3), dev)
+    _check(cluster_woop, "cluster_woop", torch.float32, (c, 12, cw), dev)
+    _check(cluster_k, "cluster_k", torch.float32, (c, cw), dev)
+    inv_count = float(np.float32(1.0) / np.float32(max(int(light_count), 1)))
+    out = torch.empty((r,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("shade_kernels").tpt_light_pdf_flat(
+            _ptr(origin), _ptr(direction), _ptr(cluster_woop), _ptr(cluster_k), r, c, cw,
+            float(min_dst), inv_count, _ptr(out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "light_pdf_flat")
+    return out
+
+
+def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
+    """Launch K2 (contract: ``models.pathtracer.hit_info_plain``): the hit
+    record [R, 16] (normal 3, shading normal 3, color 4, emission 3,
+    metallic, roughness, ior) and inside [R] bool.  ``slots``: bit k set
+    when texture slot k (color, emissive, metallic-roughness, normal) is
+    fetched; ``atlas`` a ``scene.types.TextureAtlas`` (its quad pool used
+    when it has one)."""
+    dev = direction.device
+    r = direction.shape[0]
+    n = shade_attrs.shape[0]
+    k = atlas.offset.shape[0]
+    if not 0 <= slots < 16 or n == 0:
+        raise ValueError(f"shade_gather: slots={slots} rows={n}")
+    _check(shade_attrs, "shade_attrs", torch.float32, (n, 48), dev)
+    _check(tri, "tri", torch.int32, (r,), dev)
+    _check(beta, "beta", torch.float32, (r,), dev)
+    _check(gamma, "gamma", torch.float32, (r,), dev)
+    _check(direction, "direction", torch.float32, (r, 3), dev)
+    _check(atlas.texels, "texels", torch.float32, (atlas.texels.shape[0], 4), dev)
+    if atlas.quad is not None:
+        _check(atlas.quad, "quad", torch.float32, (atlas.texels.shape[0], 16), dev)
+    for name in ("offset", "width", "height"):
+        _check(getattr(atlas, name), name, torch.int32, (k,), dev)
+    record = torch.empty((r, 16), dtype=torch.float32, device=dev)
+    inside = torch.empty((r,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("shade_kernels").tpt_shade_gather(
+            _ptr(shade_attrs), _ptr(tri), _ptr(beta), _ptr(gamma), _ptr(direction),
+            _ptr(atlas.texels), _ptr(atlas.quad), _ptr(atlas.offset), _ptr(atlas.width),
+            _ptr(atlas.height), r, slots, _ptr(record), _ptr(inside),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "shade_gather")
+    return record, inside

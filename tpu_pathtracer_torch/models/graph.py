@@ -26,10 +26,12 @@ def counted_wrappers() -> tuple:
     launches the capture recorded, so the counters stay the launches the
     card ran."""
     from ..ops import chunk_intersect as ci
-    from ..ops import rng
+    from ..ops import intersect, rng
+    from . import pathtracer
 
     return (ci.tile_chunk_activity, ci.run_items, ci.run_light_pdf, ci.nearest_box_ids,
-            ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key)
+            ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key,
+            intersect.light_pdf_flat, pathtracer.hit_info)
 
 
 class CaptureError(RuntimeError):

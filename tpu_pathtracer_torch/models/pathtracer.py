@@ -48,7 +48,13 @@ from ..ops.chunk_intersect import (
     ray_sort_key_target,
     scene_bounds,
 )
-from ..ops.intersect import Hit, closest_hit, light_pdf_sum, light_pdf_sum_flat
+from ..ops.intersect import (  # noqa: F401  (light_pdf_sum_flat: K1's twin, kept importable here)
+    Hit,
+    closest_hit,
+    light_pdf_flat,
+    light_pdf_sum,
+    light_pdf_sum_flat,
+)
 from ..ops.rng import (
     SOBOL_TAG_LIGHT,
     SOBOL_TAG_VNDF,
@@ -141,9 +147,42 @@ def _interp_flat(row, base: int, width: int, beta, gamma):
     )
 
 
+def _fetched_slots(scene: TriangleScene, config: RenderConfig) -> tuple:
+    """The texture slots (color, emissive, mr, normal) ``hit_info`` fetches.
+    An atlas of only the two builtin 1x1 textures makes every lookup the
+    identity; so does any slot no material maps to a real texture."""
+    has_textures = scene.atlas.offset.shape[0] > 2 and config.use_textures
+    return scene.tex_slots if has_textures else (False,) * 4
+
+
 def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) -> dict:
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    ``hit_info_plain`` for CPU tensors (same contract, the same bits).  On
+    the card the fields are views of the kernel's [R, 16] record."""
+    if direction.is_cuda:
+        from .. import kernels
+
+        slots = sum(1 << k for k, used in enumerate(_fetched_slots(scene, config)) if used)
+        rec, inside = kernels.shade_gather(
+            scene.shade_attrs, hit.tri.contiguous(), hit.beta.contiguous(),
+            hit.gamma.contiguous(), direction.contiguous(), scene.atlas, slots,
+        )
+        hit_info.launches += 1
+        return dict(normal=rec[:, 0:3], shading_normal=rec[:, 3:6], inside=inside,
+                    color=rec[:, 6:10], emission=rec[:, 10:13], metallic=rec[:, 13],
+                    roughness=rec[:, 14], ior=rec[:, 15])
+    if direction.device.type == "cpu":
+        return hit_info_plain(scene, direction, hit, config)
+    raise RuntimeError(f"hit_info: no kernel for device {direction.device}")
+
+
+hit_info.launches = 0
+
+
+def hit_info_plain(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) -> dict:
     """to_intersection_info (src/bvh.h:80-121): one packed-row gather per
-    hit, then the texture fetch of the slots some material uses."""
+    hit, then the texture fetch of the slots some material uses (the plain
+    twin of kernel K2)."""
     row = scene.shade_attrs[hit.tri.long()]  # [R, 48]
     base_color = row[:, 33:37]
     base_emission = row[:, 37:40]
@@ -159,10 +198,7 @@ def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) ->
     smooth = normalize(_interp_flat(row, 9, 3, hit.beta, hit.gamma))
     smooth = where3(dot(g_normal, smooth) < 0, -smooth, smooth)
 
-    # An atlas of only the two builtin 1x1 textures makes every lookup the
-    # identity; so does any slot no material maps to a real texture.
-    has_textures = scene.atlas.offset.shape[0] > 2 and config.use_textures
-    used = scene.tex_slots if has_textures else (False,) * 4
+    used = _fetched_slots(scene, config)
     gammas = (2.2, 2.2, 1.0, 1.0)
     slots = [k for k in range(4) if used[k]]
     at = {k: 4 * j for j, k in enumerate(slots)}  # slot -> first output lane
@@ -271,7 +307,7 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
                 lights.cluster_max, n_lights, eps, ray_tile=tile,
             )
         elif lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
-            p_light = light_pdf_sum_flat(
+            p_light = light_pdf_flat(
                 pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps
             )
         else:

@@ -1,6 +1,10 @@
 """Dense ray-triangle intersection and the all-hits light pdf (port of
 ``tpu_pathtracer/ops/intersect.py:93-318``).
 
+``light_pdf_flat`` dispatches the flat light-cluster pdf: kernel K1
+(``csrc/shade_kernels.cu``) on CUDA tensors, its plain twin
+``light_pdf_sum_flat`` on CPU tensors.
+
 ``closest_hit`` is the dense Woop sweep: ``[2R, 4] @ [4, 3B]`` per triangle
 block of ``TRI_BLOCK`` followed by the t/barycentric epilogue and a per-ray
 min.  The render uses it for scenes of at most 1,024 triangles, and it is the
@@ -170,3 +174,23 @@ def light_pdf_sum_flat(origin, direction, cluster_woop, cluster_k,
         term = t * t * d2 * k[None, :] / torch.abs(q2)
         total = total + torch.sum(torch.where(ok, term, torch.zeros_like(term)), dim=1)
     return total / float(max(light_count, 1))
+
+
+def light_pdf_flat(origin, direction, cluster_woop, cluster_k, light_count: int,
+                   min_dst: float) -> torch.Tensor:
+    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    ``light_pdf_sum_flat`` for CPU tensors (same contract; the kernel sums a
+    cluster's terms in its own order, so the two agree to rounding)."""
+    if origin.is_cuda:
+        from .. import kernels
+
+        out = kernels.light_pdf_flat(origin.contiguous(), direction.contiguous(), cluster_woop,
+                                     cluster_k, light_count, min_dst)
+        light_pdf_flat.launches += 1
+        return out
+    if origin.device.type == "cpu":
+        return light_pdf_sum_flat(origin, direction, cluster_woop, cluster_k, light_count, min_dst)
+    raise RuntimeError(f"light_pdf_flat: no kernel for device {origin.device}")
+
+
+light_pdf_flat.launches = 0

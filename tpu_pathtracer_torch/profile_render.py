@@ -58,6 +58,7 @@ KERNELS = {
     "activity_kernel": "B1", "items_kernel": "B2", "light_pdf_kernel": "B3",
     "nearest_kernel": "B4", "dense_kernel": "B5", "slots_kernel": "B6",
     "ray_group_kernel": "B7", "uniforms_kernel": "threefry",
+    "light_pdf_flat_kernel": "K1", "shade_gather_kernel": "K2",
 }
 # Stage ranges of the loop (utils.profiling.stage) -> the row they fill.
 STAGES = {
