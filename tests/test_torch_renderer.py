@@ -150,14 +150,15 @@ def test_torch_package_exports():
 
 
 def test_torch_phase_timer_and_trace(tmp_path, capsys):
-    """``PhaseTimer`` sums and counts phases and reports them as JSON;
-    ``device_trace`` writes a Chrome trace with the annotated region, and
-    does nothing without a directory."""
+    """``PhaseTimer`` sums and counts phases, each a span of the log, and
+    reports them as JSON; a ``span`` inside a phase is its child;
+    ``device_trace`` writes a Chrome trace with the operations run in the
+    regions, and does nothing without a directory."""
     timer = PhaseTimer()
     trace_dir = str(tmp_path / "trace")
     with device_trace(trace_dir):
         for _ in range(2):
-            with timer.phase("work"), timer.annotate("tpt_region"):
+            with timer.phase("work"), profiling.span("tpt_region"):
                 torch.ones(64).cumsum(0)
     with device_trace(None), timer.phase("io"):
         pass
@@ -166,7 +167,11 @@ def test_torch_phase_timer_and_trace(tmp_path, capsys):
     assert json.loads(capsys.readouterr().err) == {"phases_seconds": out}
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    assert sum(e.get("name") == "tpt_region" for e in events) == 2
+    assert sum(e.get("name") == "aten::cumsum" for e in events) == 2
+    log = profiling.spans()[-5:]
+    assert [s.name for s in log] == ["work", "tpt_region", "work", "tpt_region", "io"]
+    assert [s.parent for s in log[1::2][:2]] == [log[0].id, log[2].id]
+    assert sum(s.seconds for s in log[0::2][:2]) == pytest.approx(timer.totals["work"])
 
 
 def test_torch_card_line_reads_the_first_card(monkeypatch):

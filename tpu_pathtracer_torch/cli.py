@@ -37,7 +37,7 @@ from .scene.gltf import parse_gltf_scene
 from .scene.homebrew import parse_homebrew_scene
 from .utils.image import image_shape_or_raise, quantize_u8, write_ppm
 from .utils.metrics import RenderMetrics
-from .utils.profiling import PhaseTimer, device_trace
+from .utils.profiling import PhaseTimer, device_trace, span
 
 
 def _strtol(s: str) -> int:
@@ -89,33 +89,33 @@ def render_scene_file(
     override ``config.jitter`` and ``config.lowdisc`` (the 5-argument
     contract has no flag slots; the intersector's knobs come through
     ``TPU_PT_*``).  A homebrew scene renders at ``samples`` spp when it is
-    a Monte-Carlo scene and ``samples`` > 0, else at its own SAMPLES."""
+    a Monte-Carlo scene and ``samples`` > 0, else at its own SAMPLES.
+    ``load_seconds`` is the ``load`` span of the log (parse and upload)."""
     for env, field in (("TPU_PATHTRACER_JITTER", "jitter"), ("TPU_PATHTRACER_LOWDISC", "lowdisc")):
         value = os.environ.get(env)
         if value:
             config = dataclasses.replace(config, **{field: value})
     device = select_device() if device is None else device
     image_shape_or_raise(width, height)
-    t0 = time.perf_counter()
-    if scene_path.endswith(".gltf") or scene_path.endswith(".glb"):
-        scene = parse_gltf_scene(scene_path, width / height, config)
-        scene = dataclasses.replace(
-            scene, camera=scene.camera.with_dims(width, height), samples=samples
-        ).to(device)
-        t_load = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        run_stats: dict = {}
+    gltf = scene_path.endswith(".gltf") or scene_path.endswith(".glb")
+    with span("load") as load:  # ``load_seconds``
+        if gltf:
+            scene = parse_gltf_scene(scene_path, width / height, config)
+            scene = dataclasses.replace(
+                scene, camera=scene.camera.with_dims(width, height), samples=samples
+            ).to(device)
+        else:
+            scene = parse_homebrew_scene(scene_path)
+            scene = dataclasses.replace(scene, camera=scene.camera.with_dims(width, height))
+            if samples > 0 and scene.monte_carlo:
+                scene = dataclasses.replace(scene, samples=samples)
+            scene = scene.to(device)
+    t1 = time.perf_counter()
+    run_stats: dict = {}
+    if gltf:
         hdr = render(scene, spp=samples, seed=seed, config=config, progress=progress,
                      timer=timer, stats=run_stats)
     else:
-        scene = parse_homebrew_scene(scene_path)
-        scene = dataclasses.replace(scene, camera=scene.camera.with_dims(width, height))
-        if samples > 0 and scene.monte_carlo:
-            scene = dataclasses.replace(scene, samples=samples)
-        scene = scene.to(device)
-        t_load = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        run_stats = {}
         hdr = render_homebrew(scene, seed=seed, config=config)
     t_render = time.perf_counter() - t1
     metrics = RenderMetrics(
@@ -123,7 +123,7 @@ def render_scene_file(
         height=height,
         samples=samples,
         ray_depth=scene.ray_depth,
-        load_seconds=t_load,
+        load_seconds=load.seconds,
         render_seconds=t_render,
         measured_rays=run_stats.get("measured_rays"),
     )

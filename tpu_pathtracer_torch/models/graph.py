@@ -12,13 +12,18 @@ The carries and everything the body reads stay at fixed addresses: the body
 reads its inputs from the tensors of ``carries`` and writes the new carries
 back into them at the end of the block.  A capture that fails raises
 ``CaptureError``, which a caller's retry of failed executions re-raises.
+The eager first block and the capture are one ``capture`` span of the log
+(``utils/profiling.py``), and the capture records the graph's stage map.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict, Optional
 
 import torch
+
+from ..utils.profiling import span, stage_map
 
 
 def counted_wrappers() -> tuple:
@@ -32,6 +37,26 @@ def counted_wrappers() -> tuple:
     return (ci.tile_chunk_activity, ci.run_items, ci.run_light_pdf, ci.nearest_box_ids,
             ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key,
             intersect.light_pdf_flat, pathtracer.hit_info)
+
+
+def capture_node_counter(stream: torch.cuda.Stream) -> Callable[[], int]:
+    """A function that reads how many nodes the CUDA graph being captured
+    on ``stream`` holds so far (``libcuda``'s ``cuStreamGetCaptureInfo`` and
+    ``cuGraphGetNodes``, a few microseconds a call)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    info, get_nodes = cuda.cuStreamGetCaptureInfo_v2, cuda.cuGraphGetNodes
+    handle = ctypes.c_void_p(stream.cuda_stream)
+    status, capture_id, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+    deps, n_deps, n = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_size_t()
+
+    def count() -> int:
+        rc = info(handle, ctypes.byref(status), ctypes.byref(capture_id), ctypes.byref(graph),
+                  ctypes.byref(deps), ctypes.byref(n_deps))
+        if rc != 0 or not graph.value or get_nodes(graph, None, ctypes.byref(n)) != 0:
+            raise RuntimeError(f"cannot read the nodes of the graph being captured (CUresult {rc})")
+        return n.value
+
+    return count
 
 
 class CaptureError(RuntimeError):
@@ -55,6 +80,7 @@ class CapturedBlock:
         self.device = next(iter(carries.values())).device
         self.flag = None if more is None else torch.ones((), dtype=torch.bool, device=self.device)
         self.graph = None
+        self.graph_id = None  # the stage map's id of the captured graph
         self.per_replay = ()
 
     def load(self, carries: Dict[str, torch.Tensor]) -> None:
@@ -73,26 +99,28 @@ class CapturedBlock:
 
     def _capture(self) -> None:
         dev = self.device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._block()  # the first block, run for real
-        main.wait_stream(side)
-        wrappers = counted_wrappers()
-        before = [fn.launches for fn in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                self._block()
-        except Exception as err:
-            raise CaptureError(f"CUDA graph capture failed: {err}") from err
+        with span("capture", iterations=self.iterations):
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._block()  # the first block, run for real
+            main.wait_stream(side)
+            wrappers = counted_wrappers()
+            before = [fn.launches for fn in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    with stage_map(capture_node_counter(torch.cuda.current_stream(dev))) as smap:
+                        self._block()
+            except Exception as err:
+                raise CaptureError(f"CUDA graph capture failed: {err}") from err
         # The capture ran nothing: its launches count once per replay.
         self.per_replay = tuple((fn, fn.launches - n) for fn, n in zip(wrappers, before)
                                 if fn.launches != n)
         for fn, n in self.per_replay:
             fn.launches -= n
-        self.graph = graph
+        self.graph, self.graph_id = graph, smap.graph
         CapturedBlock.captures += 1
 
     def run(self) -> Optional[bool]:

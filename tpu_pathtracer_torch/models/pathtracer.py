@@ -64,7 +64,7 @@ from ..ops.rng import (
 )
 from ..ops.vecmath import constant, cross, dot, frame_apply, length2, normalize, where3
 from ..scene.types import Camera, TriangleScene
-from ..utils.profiling import stage
+from ..utils.profiling import last, span, stage
 from .graph import CapturedBlock, CaptureError
 
 # Uniform draws per ray per bounce:
@@ -670,34 +670,53 @@ def persistent_accum(
     and no work is left, ``done`` and ``take`` are all false, ``add_rows``
     adds exact zeros to the drop rows only (past ``rows``), ``n_bounce``
     adds 0 and ``next_work`` stays at ``w_total``.
-    ``persistent_accum.iterations`` counts the iterations run."""
+    ``persistent_accum.iterations`` counts the iterations run.
+
+    The call is an ``engine_call`` span of the log with ``lanes``,
+    ``iterations`` and, on CUDA's graph loop, ``graph`` (its stage map's
+    id); the caller attaches ``rays`` where it reads the count
+    (``utils.profiling.last``).  Inside it: ``call_start`` (the buffers,
+    the inputs' load and the first carries) and ``drain`` (the iterations
+    with their host reads, and the capture at a body's first call)."""
     dev = scene.device
     pool_pix = n_rays if pix_count is None else pix_count
     rows = n_rays if accum_rows is None else accum_rows
     kind = engine_loop(config, dev, eager)
     k = LOOP_ITERATIONS
-    scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
-    if kind == "eager":
-        body = _PersistentLoop(scene, config, n_rays, rows, scene.camera, scalars)
-        c = body.start()
-        while bool(body.more(c)):
-            c = body.iteration(c)
-            persistent_accum.iterations += 1
-        return body.accum[:rows], c["n_bounce"]
+    it0 = persistent_accum.iterations
+    with span("engine_call", lanes=n_rays) as call:
+        if kind == "eager":
+            with span("call_start"):
+                scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
+                body = _PersistentLoop(scene, config, n_rays, rows, scene.camera, scalars)
+                c = body.start()
+            with span("drain"):
+                while bool(body.more(c)):
+                    c = body.iteration(c)
+                    persistent_accum.iterations += 1
+            call.add(iterations=persistent_accum.iterations - it0)
+            return body.accum[:rows], c["n_bounce"]
 
-    entry = compiled_body("persistent", scene, config, (n_rays, rows, k), lambda camera, buf: (
-        _PersistentLoop(scene, config, n_rays, rows, camera, buf)))
-    body = entry["body"]
-    load_inputs(body, scene.camera, scalars)
-    carries = body.start()
-    block = run_block(entry, body.iteration, body.more, carries, k)
-    while True:
-        more = block.run()
-        persistent_accum.iterations += k
-        if not more:
-            break
-    # Copies: the next call of this loop overwrites its buffers.
-    return body.accum[:rows].clone(), block.carries["n_bounce"].clone()
+        with span("call_start"):
+            scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
+            entry = compiled_body("persistent", scene, config, (n_rays, rows, k),
+                                  lambda camera, buf: _PersistentLoop(scene, config, n_rays, rows,
+                                                                      camera, buf))
+            body = entry["body"]
+            load_inputs(body, scene.camera, scalars)
+            carries = body.start()
+            block = run_block(entry, body.iteration, body.more, carries, k)
+        with span("drain"):
+            while True:
+                more = block.run()
+                persistent_accum.iterations += k
+                if not more:
+                    break
+        call.add(iterations=persistent_accum.iterations - it0)
+        if block.graph_id is not None:
+            call.add(graph=block.graph_id)
+        # Copies: the next call of this loop overwrites its buffers.
+        return body.accum[:rows].clone(), block.carries["n_bounce"].clone()
 
 
 persistent_accum.iterations = 0
@@ -828,26 +847,32 @@ def scan_accum(scene: TriangleScene, chunk_start, seed, sample_start, n_rays: in
     is.  Both give the same bits.  ``chunk_start``, ``seed`` and
     ``sample_start`` may be Python ints or 0-d tensors.
     ``scan_accum.bounces`` counts the wavefront bounces run (a replay runs
-    ``ray_depth``)."""
+    ``ray_depth``).  The call is an ``engine_call`` span of the log with
+    ``lanes`` and, on CUDA, ``graph``."""
     dev = scene.device
-    if engine_loop(config, dev, eager) == "eager":
-        pids = chunk_start + torch.arange(n_rays, dtype=torch.int32, device=dev)
-        acc = torch.zeros((n_rays, 3), device=dev)
-        for s in range(spp):
-            gs = sample_start + s
-            o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, gs, pids, config.jitter))
-            acc = acc + sanitize_nans(trace(scene, o, d, seed, pids, config, sample=gs))
-        return acc
-    entry = compiled_body("scan", scene, config, (n_rays,), lambda camera, buf: (
-        _ScanSample(scene, config, n_rays, camera, buf)))
-    body = entry["body"]
-    load_inputs(body, scene.camera, _traced_scalars(dev, chunk_start, seed, sample_start))
-    block = run_block(entry, body.step, None, body.start(), 1)
-    for _ in range(spp):
-        block.run()
-    scan_accum.bounces += spp * scene.ray_depth
-    # A copy: the next call of this body overwrites its buffers.
-    return block.carries["acc"].clone()
+    with span("engine_call", lanes=n_rays) as call:
+        if engine_loop(config, dev, eager) == "eager":
+            pids = chunk_start + torch.arange(n_rays, dtype=torch.int32, device=dev)
+            acc = torch.zeros((n_rays, 3), device=dev)
+            for s in range(spp):
+                gs = sample_start + s
+                o, d = gen_rays(scene.camera, pids, jitter_uniforms(seed, gs, pids, config.jitter))
+                acc = acc + sanitize_nans(trace(scene, o, d, seed, pids, config, sample=gs))
+            return acc
+        with span("call_start"):
+            entry = compiled_body("scan", scene, config, (n_rays,), lambda camera, buf: (
+                _ScanSample(scene, config, n_rays, camera, buf)))
+            body = entry["body"]
+            load_inputs(body, scene.camera, _traced_scalars(dev, chunk_start, seed, sample_start))
+            block = run_block(entry, body.step, None, body.start(), 1)
+        with span("drain"):
+            for _ in range(spp):
+                block.run()
+        scan_accum.bounces += spp * scene.ray_depth
+        if block.graph_id is not None:
+            call.add(graph=block.graph_id)
+        # A copy: the next call of this body overwrites its buffers.
+        return block.carries["acc"].clone()
 
 
 scan_accum.bounces = 0
@@ -898,7 +923,10 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     Either engine runs its loop as a CUDA graph on CUDA (eagerly under
     intersector mode "bins") and as the same body uncaptured on the CPU
     (``persistent_accum``, ``scan_accum``); ``eager=True`` runs the eager
-    loop instead."""
+    loop instead.  Each (chunk, pass) is a ``chunk_pass`` span of the log
+    (``start``, its first pixel, and ``samples``) around its engine call,
+    whose ``rays`` it attaches at its read of them, and each chunk's copy
+    to the host a ``readback`` span."""
     config = config or RenderConfig()
     check_config(config)
     phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
@@ -926,7 +954,7 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                 print(f"{tile}/{n_tiles}     \r", end="", file=sys.stderr)
                 ticked = tile
             todo = min(pass_spp, spp - s0)
-            with phase("dispatch"):
+            with span("chunk_pass", start=start, samples=todo), phase("dispatch"):
                 if not config.compaction:
                     rad = render_chunk(scene, start, seed, s0, chunk, todo, config, eager=eager)
                 else:
@@ -938,10 +966,12 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                         scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar,
                         eager=eager,
                     )
-                    rays += int(nb)
+                    call_rays = int(nb)
+                    last("engine_call").add(rays=call_rays)
+                    rays += call_rays
                 contrib = rad * float(todo)
                 acc = contrib if acc is None else acc + contrib
-        with phase("device_wait_readback"):
+        with phase("device_wait_readback"), span("readback"):
             return acc[:n].cpu().numpy(), rays
 
     out = np.zeros((npix, 3), dtype=np.float32)

@@ -25,9 +25,16 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..models.pathtracer import check_config, pick_chunk, render_chunk, render_chunk_persistent
+from ..models.pathtracer import (
+    check_config,
+    engine_loop,
+    pick_chunk,
+    render_chunk,
+    render_chunk_persistent,
+)
 from ..scene.accel import LEAF_SIZE, build_leaves, leaf_woop
 from ..scene.types import TriangleScene
+from ..utils.profiling import last, span
 
 # Config fields that change HOW the render executes but not WHAT estimator
 # it computes (the same samples, up to fp summation order).  They are left
@@ -89,14 +96,17 @@ def scene_fingerprint(scene: TriangleScene, config: RenderConfig) -> int:
 
     Guards resume against blending a checkpoint of another scene or
     estimator into the accumulator.  ``_EXECUTION_KNOBS`` are set to their
-    defaults first: they move fp summation order at most."""
-    defaults = RenderConfig()
-    normalized = dataclasses.replace(config, **{k: getattr(defaults, k) for k in _EXECUTION_KNOBS})
-    crc = zlib.crc32(repr(normalized).encode())
-    for arr in _jax_scene_leaves(scene):
-        crc = zlib.crc32(arr.tobytes(), crc)
-        crc = zlib.crc32(str(arr.dtype).encode() + str(arr.shape).encode(), crc)
-    return crc
+    defaults first: they move fp summation order at most.  A
+    ``fingerprint`` span of the log."""
+    with span("fingerprint"):
+        defaults = RenderConfig()
+        normalized = dataclasses.replace(config, **{k: getattr(defaults, k)
+                                                    for k in _EXECUTION_KNOBS})
+        crc = zlib.crc32(repr(normalized).encode())
+        for arr in _jax_scene_leaves(scene):
+            crc = zlib.crc32(arr.tobytes(), crc)
+            crc = zlib.crc32(str(arr.dtype).encode() + str(arr.shape).encode(), crc)
+        return crc
 
 
 @dataclasses.dataclass
@@ -117,27 +127,29 @@ class RenderState:
         return (self.accum / n).reshape(self.height, self.width, 3)
 
     def save(self, path: str) -> None:
-        """Atomic write: a crash mid-save leaves the previous file whole."""
-        parent = os.path.dirname(path)
-        if parent:
-            os.makedirs(parent, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=parent or ".", suffix=".npz.tmp")
-        os.close(fd)
-        try:
-            with open(tmp, "wb") as f:
-                np.savez(
-                    f,
-                    accum=self.accum,
-                    samples_done=self.samples_done,
-                    width=self.width,
-                    height=self.height,
-                    seed=self.seed,
-                    fingerprint=self.fingerprint,
-                )
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        """Atomic write: a crash mid-save leaves the previous file whole.  A
+        ``save`` span of the log."""
+        with span("save"):
+            parent = os.path.dirname(path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=parent or ".", suffix=".npz.tmp")
+            os.close(fd)
+            try:
+                with open(tmp, "wb") as f:
+                    np.savez(
+                        f,
+                        accum=self.accum,
+                        samples_done=self.samples_done,
+                        width=self.width,
+                        height=self.height,
+                        seed=self.seed,
+                        fingerprint=self.fingerprint,
+                    )
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
 
     @staticmethod
     def load(path: str) -> "RenderState":
@@ -190,6 +202,7 @@ def render_with_checkpoints(
     checkpoint_every: Optional[int] = None,
     resume: bool = True,
     progress: Optional[Callable[[int, int], None]] = None,
+    stats: Optional[dict] = None,
 ) -> np.ndarray:
     """Like ``models.pathtracer.render``, but accumulates in resumable passes.
 
@@ -197,7 +210,14 @@ def render_with_checkpoints(
     ``config.spp_per_pass``); after each pass the accumulator is saved to
     ``checkpoint_path``.  If that file exists and matches the resolution,
     seed and fingerprint, rendering resumes from its ``samples_done``.
-    Returns the final [H, W, 3] HDR image."""
+    Returns the final [H, W, 3] HDR image.  As in ``render``, with the
+    persistent engine ``stats["measured_rays"]`` receives the rays traced
+    (by the passes this call ran) and ``stats["loop"]`` the loop taken.
+    Each pass is a ``pass`` span of the log, holding a ``chunk_pass`` span
+    a chunk (``start``, its first pixel, and ``samples``, as in ``render``:
+    its engine call and its ``readback``, the copy to the host and the
+    accumulate, where the call's ``rays`` are read) and the ``save``;
+    ``progress`` is called after it."""
     config = config or RenderConfig()
     check_config(config)
     cam = scene.camera
@@ -218,26 +238,40 @@ def render_with_checkpoints(
     frame_pool = config.frame_pool and config.compaction and npix > chunk
     pix_step = npix if frame_pool else chunk
 
+    measured = 0
     while state.samples_done < spp:
         todo = min(pass_spp, spp - state.samples_done)
-        for start in range(0, npix, pix_step):
-            n = min(pix_step, npix - start)
-            if config.compaction:
-                if frame_pool:
-                    pc, ar = n, n
-                else:
-                    pc, ar = (None if n == chunk else n), None
-                rad, _ = render_chunk_persistent(
-                    scene, start, seed, state.samples_done, chunk, todo, config,
-                    pix_count=pc, accum_rows=ar,
-                )
-            else:
-                rad = render_chunk(scene, start, seed, state.samples_done, chunk, todo, config)
-            # The engines return the mean over ``todo``; accumulate the sum.
-            state.accum[start:start + n] += rad[:n].cpu().numpy() * todo
-        state.samples_done += todo
-        if checkpoint_path:
-            state.save(checkpoint_path)
+        with span("pass"):
+            for start in range(0, npix, pix_step):
+                n = min(pix_step, npix - start)
+                with span("chunk_pass", start=start, samples=todo):
+                    nb = None
+                    if config.compaction:
+                        if frame_pool:
+                            pc, ar = n, n
+                        else:
+                            pc, ar = (None if n == chunk else n), None
+                        rad, nb = render_chunk_persistent(
+                            scene, start, seed, state.samples_done, chunk, todo, config,
+                            pix_count=pc, accum_rows=ar,
+                        )
+                    else:
+                        rad = render_chunk(scene, start, seed, state.samples_done, chunk, todo,
+                                           config)
+                    with span("readback"):
+                        host = rad[:n].cpu().numpy()
+                        # The engines return the mean over ``todo``; accumulate the sum.
+                        state.accum[start:start + n] += host * todo
+                        if nb is not None:
+                            call_rays = int(nb)
+                            last("engine_call").add(rays=call_rays)
+                            measured += call_rays
+            state.samples_done += todo
+            if checkpoint_path:
+                state.save(checkpoint_path)
         if progress:
             progress(state.samples_done, spp)
+    if stats is not None and config.compaction:
+        stats["measured_rays"] = measured
+        stats["loop"] = engine_loop(config, scene.device)
     return state.image

@@ -13,12 +13,12 @@ render at 1 spp with each loop.  A case of ``CASES``:
 - timed: at 16 spp with the persistent engine's per-iteration "eager" loop
   and its CUDA graph, in turns (eager, graph, graph, eager): seconds,
   iterations run, and ms per useful iteration (the eager loop's count);
-- stages: at 4 spp, eager, under ``torch.profiler`` with the loop's stage
-  ranges on (``utils.profiling.stage``): the device operations launched per
-  iteration and their device ms, split by stage, each launch given to the
-  innermost stage range around it.  Twice: "before", with the threefry
-  draws as the plain-torch twin (the loop as it was before the threefry
-  kernel), and "after", with the kernel;
+- stages: at 4 spp with the graph, under ``torch.profiler``: each
+  replay's device operations (those of its ``cudaGraphLaunch``'s
+  correlation id, by start) given one by one to the nodes of its graph's
+  stage map (``utils.profiling.stage_map``, recorded at the capture), as
+  operations and device ms per iteration by stage path, with the replays
+  whose operation count equals the map's node count;
 - busy: the device's busy ms per iteration (the sum of its kernel and
   memory-operation times: the render runs on one stream) of the eager and
   the graph loop at 4 spp under ``torch.profiler``, against the timed
@@ -38,8 +38,6 @@ Prints one JSON line per case, then the card's ``nvidia-smi`` name, power
 limit, SM clock and power draw.
 """
 
-import bisect
-import contextlib
 import dataclasses
 import json
 import os
@@ -60,23 +58,6 @@ KERNELS = {
     "ray_group_kernel": "B7", "uniforms_kernel": "threefry",
     "light_pdf_flat_kernel": "K1", "shade_gather_kernel": "K2",
 }
-# Stage ranges of the loop (utils.profiling.stage) -> the row they fill.
-STAGES = {
-    "sort": "sort + carry permutation",
-    "draws": "bounce_draws",
-    "spawn": "spawn (jitter_uniforms + gen_rays)",
-    "hit_info": "hit_info + texture",
-    "shading": "sampling / BSDF",
-    "light_pdf": "light pdf",
-    "intersector": "cascade glue",
-    "kernels": "B1-B7 launches",
-    "add_rows": "add_rows",
-    "regenerate": "regeneration",
-    "loop": "loop glue",
-}
-# Host calls that put one operation on the device.
-_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
-             "cudaMemsetAsync", "cudaMemcpyAsync", "cudaMemcpy", "cudaGraphLaunch")
 
 
 def _scene_and_config(case, tmp):
@@ -129,26 +110,11 @@ def _render(scene, config, spp, loop):
                                                      for fn in counted_wrappers()}
 
 
-@contextlib.contextmanager
-def _plain_threefry():
-    """The threefry draws as the plain-torch twin on the card (the loop before
-    the threefry kernel), for a "before" profile only."""
-    from .ops import rng
-
-    kernel = rng.lane_uniforms_key
-    rng.lane_uniforms_key = rng.lane_uniforms_key_plain
-    try:
-        yield
-    finally:
-        rng.lane_uniforms_key = kernel
-
-
 def _device_times(prof):
-    """{kernel or memory operation: (device ms, count)} from a profile (the
-    stage ranges' own spans on the device's timeline left out)."""
+    """{kernel or memory operation: (device ms, count)} from a profile."""
     out = {}
     for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.key not in STAGES:
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             ms = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0)) / 1e3
             if ms > 0:
                 out[ev.key] = (ms, ev.count)
@@ -156,41 +122,36 @@ def _device_times(prof):
 
 
 def _stage_split(prof, iterations):
-    """{row: [device operations launched per iteration, their device ms per
-    iteration or None]}: each host launch call is given to the innermost
-    stage range around it on its thread, and its device operation's time is
-    found by the correlation id the two share."""
-    events = prof.events()
-    cpu = [e for e in events if str(getattr(e, "device_type", "")).endswith("CPU")]
-    dev_ms = {}
-    for e in events:
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            dev_ms[e.id] = dev_ms.get(e.id, 0.0) + e.time_range.elapsed_us() / 1e3
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name, e.thread)
-                    for e in cpu if e.name in STAGES)
-    calls = sorted((e.time_range.start, e.thread, e.id) for e in cpu if e.name in _LAUNCHES)
-    out = {row: [0, 0.0] for row in list(STAGES.values()) + ["outside the loop"]}
-    matched = 0
-    by_thread = {}
-    for r in ranges:
-        by_thread.setdefault(r[3], []).append(r)
-    for thread, rs in by_thread.items():
-        starts = [r[0] for r in rs]
-        for t, th, cid in calls:
-            if th != thread:
-                continue
-            # The innermost range: the latest start before t whose end is after t.
-            k = bisect.bisect_right(starts, t) - 1
-            while k >= 0 and rs[k][1] < t:
-                k -= 1
-            row = STAGES[rs[k][2]] if k >= 0 else "outside the loop"
-            out[row][0] += 1
-            if cid in dev_ms:
-                out[row][1] += dev_ms[cid]
-                matched += 1
-    n = max(len(calls), 1)
-    return {row: [c / iterations, (ms / iterations) if matched else None]
-            for row, (c, ms) in out.items()}, matched / n
+    """({stage path: [device operations per iteration, their device ms per
+    iteration]}, [replays matched, replays seen]) of the graph replays in a
+    profile: a replay's device operations (those of its ``cudaGraphLaunch``'s
+    correlation id), in order of start, are the nodes of the stage map of
+    the engine call's graph around the launch; a replay whose operation
+    count differs from the map's node count is left out."""
+    from .utils import profiling
+
+    maps = {m.graph: m for m in profiling.stage_maps()}
+    calls = [s for s in profiling.spans() if s.name == "engine_call" and "graph" in s.counts]
+    ops, launches = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if str(ev.device_type()).endswith("CUDA"):
+            ops.setdefault(ev.correlation_id(), []).append((ev.start_ns(), ev.duration_ns()))
+        elif ev.name() == "cudaGraphLaunch":
+            launches.append((ev.start_ns(), ev.correlation_id()))
+    out, matched = {}, 0
+    for t, cid in launches:
+        call = next((c for c in calls if c.start_ns <= t <= (c.end_ns or t)), None)
+        smap = maps.get(call.counts["graph"]) if call else None
+        replay = sorted(ops.get(cid, ()))
+        if smap is None or len(replay) != smap.nodes:
+            continue
+        matched += 1
+        for path, first, last in smap.rows:
+            row = out.setdefault(path, [0, 0.0])
+            row[0] += last - first + 1
+            row[1] += sum(d for _, d in replay[first:last + 1]) / 1e6
+    return ({path: [n / iterations, ms / iterations] for path, (n, ms) in out.items()},
+            [matched, len(launches)])
 
 
 def _per_pass(prof, iterations):
@@ -229,13 +190,10 @@ def _in_graph(dev, iterations):
             for k, (ms, n) in out.items()}
 
 
-def _profiled(scene, config, spp, loop, stages=False):
+def _profiled(scene, config, spp, loop):
     from torch.profiler import ProfilerActivity, profile
 
-    from .utils.profiling import label_stages
-
-    labels = label_stages() if stages else contextlib.nullcontext()
-    with labels, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         seconds, iterations, _ = _render(scene, config, spp, loop)
     return prof, seconds, iterations
 
@@ -251,29 +209,16 @@ def profile_case(case, tmp, spp=SPP, profile_spp=PROFILE_SPP):
         timed[loop].append((seconds, iterations))
     useful = timed["eager"][0][1]
 
-    stages = {}
-    _profiled(scene, config, 1, "eager", stages=True)  # the profiler's first cycle
-    for form in ("before", "after"):
-        with _plain_threefry() if form == "before" else contextlib.nullcontext():
-            prof, seconds, iterations = _profiled(scene, config, profile_spp, "eager", stages=True)
-        split, matched = _stage_split(prof, iterations)
-        dev = _device_times(prof)
-        stages[form] = {
-            "iterations": iterations,
-            "device_ops_per_iteration": sum(c for _, c in dev.values()) / iterations,
-            "busy_ms_per_iteration": sum(ms for ms, _ in dev.values()) / iterations,
-            "launches_matched_to_device": matched,
-            "by_stage": split,
-        }
-        if form == "after":
-            eager_prof, eager_dev = prof, dev
+    _profiled(scene, config, 1, "graph")  # the profiler's first cycle
+    profiles = {loop: _profiled(scene, config, profile_spp, loop) for loop in ("eager", "graph")}
+    graph_prof, _, graph_iterations = profiles["graph"]
+    split, replays = _stage_split(graph_prof, graph_iterations)
+    stages = {"iterations": graph_iterations, "replays_matched_of_seen": replays,
+              "by_stage": split}
     busy = {}
     for loop in ("eager", "graph"):
-        if loop == "eager":
-            prof, dev, iterations = eager_prof, eager_dev, stages["after"]["iterations"]
-        else:
-            prof, _, iterations = _profiled(scene, config, profile_spp, loop)
-            dev = _device_times(prof)
+        prof, _, iterations = profiles[loop]
+        dev = _device_times(prof)
         ms = sum(m for m, _ in dev.values())
         timed_it = sum(s for s, _ in timed[loop]) * 1e3 / sum(i for _, i in timed[loop])
         busy[loop] = {

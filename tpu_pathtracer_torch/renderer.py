@@ -28,6 +28,7 @@ from .scene.gltf import parse_gltf_scene
 from .scene.homebrew import parse_homebrew_scene
 from .scene.types import Camera, PrimitiveScene
 from .utils.image import quantize_u8, write_ppm
+from .utils.profiling import span
 
 
 class Renderer:
@@ -84,14 +85,19 @@ class Renderer:
 
     # --- rendering -----------------------------------------------------------
 
-    def render(self, width: int, height: int, spp: int, seed: int = 0) -> np.ndarray:
-        """Render an HDR [H, W, 3] float32 frame."""
-        scene = dataclasses.replace(self.scene, camera=self.scene.camera.with_dims(width, height))
-        if isinstance(scene, PrimitiveScene):
-            if scene.monte_carlo and spp:
-                scene = dataclasses.replace(scene, samples=spp)
-            return render_homebrew(scene, seed=seed, config=self.config)
-        return render(scene, spp=spp, seed=seed, config=self.config)
+    def render(self, width: int, height: int, spp: int, seed: int = 0,
+               stats: Optional[dict] = None) -> np.ndarray:
+        """Render an HDR [H, W, 3] float32 frame (a ``frame`` span of the
+        log); ``stats`` goes to ``models.pathtracer.render`` (measured rays
+        and the loop taken), untouched for a homebrew scene."""
+        with span("frame"):
+            scene = dataclasses.replace(self.scene,
+                                        camera=self.scene.camera.with_dims(width, height))
+            if isinstance(scene, PrimitiveScene):
+                if scene.monte_carlo and spp:
+                    scene = dataclasses.replace(scene, samples=spp)
+                return render_homebrew(scene, seed=seed, config=self.config)
+            return render(scene, spp=spp, seed=seed, config=self.config, stats=stats)
 
     def render_ldr(self, width: int, height: int, spp: int, seed: int = 0) -> np.ndarray:
         """Render straight to tone-mapped uint8 (the reference's pipeline)."""

@@ -12,6 +12,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from .profiling import span
+
 GAMMA = 2.2  # src/image.h:49
 
 
@@ -34,19 +36,21 @@ def quantize_u8(hdr: torch.Tensor) -> torch.Tensor:
 
 
 def write_ppm(dst: Union[str, io.BufferedIOBase], pixels_u8: np.ndarray) -> None:
-    """Binary P6 PPM: header then raw RGB bytes (src/image.h:34-38)."""
+    """Binary P6 PPM: header then raw RGB bytes (src/image.h:34-38).  A
+    ``write`` span of the log."""
     pixels_u8 = np.asarray(pixels_u8, dtype=np.uint8)
     h, w, c = pixels_u8.shape
     if c != 3:
         raise ValueError("PPM requires RGB")
     header = f"P6\n{w} {h}\n255\n".encode("ascii")
-    if isinstance(dst, str):
-        with open(dst, "wb") as f:
-            f.write(header)
-            f.write(pixels_u8.tobytes())
-    else:
-        dst.write(header)
-        dst.write(pixels_u8.tobytes())
+    with span("write"):
+        if isinstance(dst, str):
+            with open(dst, "wb") as f:
+                f.write(header)
+                f.write(pixels_u8.tobytes())
+        else:
+            dst.write(header)
+            dst.write(pixels_u8.tobytes())
 
 
 def read_ppm(src: Union[str, io.BufferedIOBase]) -> np.ndarray:
