@@ -29,7 +29,15 @@ plain-torch twin on the inputs of the real paths, 65,536-ray batches:
                    asset that uses every texture slot, with the quad and the
                    flat texel pool (within 2 ulp of its twin; 0 so far);
                    both timed beside their twins, K1 also beside B3 over a
-                   full worklist.
+                   full worklist;
+  shade_chain      K3 and K4, the bounce's sampling / BSDF chain before
+                   and after the light pdf, against their twins bit for bit
+                   on the atrium's and the env field's rays, timed beside
+                   the twins and against their bytes' bound; then the shade
+                   class of the atrium's captured block (device operations
+                   an iteration, their names) with the kernels and with the
+                   twins, and the frames of kernels (graph and eager) and
+                   twins equal bit for bit.
 
 Then it renders, each at 512x512 @ 16 spp with the launch counters set to 0
 just before and read just after:
@@ -106,9 +114,9 @@ plain torch):
                    160x120 in a process of their own.
 
 Every phase prints one JSON line; any failure raises, so the script exits
-non-zero without the final line.  ``python3 chip_smoke.py shading engine
-homebrew sharded headline`` (any of them) runs only those phases after the
-build;
+non-zero without the final line.  ``python3 chip_smoke.py shading
+shade_chain engine homebrew sharded headline`` (any of them) runs only
+those phases after the build;
 ``python3 chip_smoke.py headline_full`` runs the JAX package's headline
 workload (the atrium at 1000x1000 @ 1000 spp in checkpoints of 50) and
 holds its frame against the JAX package's committed frame by the fp-noise
@@ -266,7 +274,8 @@ def counters():
     return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
             "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
             "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key,
-            "k1": intersect.light_pdf_flat, "k2": pt.hit_info}
+            "k1": intersect.light_pdf_flat, "k2": pt.hit_info, "k3": pt.shade_sample,
+            "k4": pt.shade_finish}
 
 
 def reset_launches():
@@ -1354,6 +1363,221 @@ def phase_shading(tmp, scene, rays_sets, field, env):
          k2_ms=times["k2"][0], k2_plain_ms=times["k2"][1], k2_slots=fetched_slots(scene, config),
          k2_max_ulp=ulp, nvidia_smi=card_line())
     return errs, ulp, times, work, b3_ms
+
+
+def bits_differ(a, b):
+    """[R] lanes of ``a`` and ``b`` (R first) where some element's bits
+    differ (two NaNs agree)."""
+    if a.dtype.is_floating_point:
+        same = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+        same = same | (torch.isnan(a) & torch.isnan(b))
+    else:
+        same = a == b
+    return ~same.reshape(a.shape[0], -1).all(dim=1)
+
+
+# K3's and K4's outputs, in order.
+CHAIN_OUTPUTS = ("pos", "new_dir", "radiance", "flags", "o", "d", "throughput", "moved", "hint")
+
+
+def chain_case(scene, config, o, d, seed):
+    """K3 and K4 on rays (o, d): lanes parked at 1e30 dead, a throughput and
+    a radiance drawn from ``seed``, the bounce draws at depth 1, the closest
+    hits and their record (K2).  Returns the twins' arguments after scene
+    and config ("sample_in", "finish_in", K4's from K3's twin outputs and
+    the light pdf of those), the kernels' ("a3", "a4"), the twins' outputs
+    ("t3", "t4") and "p_light"."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    n = o.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    pids = torch.arange(n, dtype=torch.int32, device=DEV)
+    hit = pt.scene_closest_hit(scene, o, d, EPS, config.tuning)
+    sample_in = (o.contiguous(), d.contiguous(), 0.1 + torch.rand((n, 3), generator=g, device=DEV),
+                 torch.rand((n, 3), generator=g, device=DEV), o[:, 0].abs() < 1e29,
+                 pt.bounce_draws(seed, 0, 1, pids, config), hit, pt.hit_info(scene, d, hit, config))
+    t3 = pt.shade_sample_plain(scene, config, *sample_in)
+    p_light = pt.light_pdf(scene, t3[0], t3[1], EPS)
+    finish_in = sample_in[:3] + sample_in[6:] + (t3[0], t3[1], t3[3], p_light)
+    return dict(sample_in=sample_in, finish_in=finish_in, t3=t3, p_light=p_light,
+                t4=pt.shade_finish_plain(scene, config, *finish_in),
+                a3=pt.shade_sample_args(scene, config, *sample_in),
+                a4=pt.shade_finish_args(scene, config, *finish_in))
+
+
+def check_chain(label, scene, config, rays_sets, seed):
+    """K3 and K4 against their twins on a scene's primaries and secondaries:
+    every output bit for bit.  Emits the lanes that differ per output and,
+    where some do, the first ones' inputs and outputs.  Returns the number
+    of lanes that differ."""
+    from tpu_pathtracer_torch import kernels
+
+    bad = 0
+    for name, (o, d) in rays_sets.items():
+        c = chain_case(scene, config, o, d, seed)
+        got = kernels.shade_sample(*c["a3"]) + kernels.shade_finish(*c["a4"])
+        outs = dict(zip(CHAIN_OUTPUTS, zip(got, c["t3"] + c["t4"])))
+        differ = {k: bits_differ(a, b) for k, (a, b) in outs.items()}
+        o_in, d_in, thr, rad, alive, draws, hit, info = c["sample_in"]
+        flags = c["t3"][3]
+        emit("shade_chain", scene=label, rays=name, lanes=o.shape[0],
+             alive=int(alive.sum()), misses=int((alive & ~hit.hit).sum()),
+             shade=int(flags[:, 0].sum()), passthrough=int(flags[:, 1].sum()),
+             moved=int(c["t4"][3].sum()), p_light=c["p_light"] is not None,
+             lanes_differing={k: int(v.sum()) for k, v in differ.items()},
+             max_ulp={k: int(ulps(a, b).max()) for k, (a, b) in outs.items()
+                      if a.dtype.is_floating_point})
+        lanes = torch.stack(list(differ.values())).any(dim=0)
+        for i in torch.nonzero(lanes).flatten()[:4].tolist():
+            emit("shade_chain_diff", scene=label, rays=name, lane=i,
+                 inputs=dict(o=o_in[i].tolist(), d=d_in[i].tolist(), throughput=thr[i].tolist(),
+                             radiance=rad[i].tolist(), alive=bool(alive[i]),
+                             draws=draws[:, i].tolist(), record=info["record"][i].tolist(),
+                             t=float(hit.t[i]), hit=bool(hit.hit[i]),
+                             p_light=None if c["p_light"] is None else float(c["p_light"][i])),
+                 kernel={k: a[i].tolist() for k, (a, _) in outs.items()},
+                 twin={k: b[i].tolist() for k, (_, b) in outs.items()})
+        bad += int(lanes.sum())
+    return bad
+
+
+def chain_bytes(c):
+    """Bytes K3 and K4 must move on a ``chain_case``: each per-ray input
+    read once and each output written once; K4 reads a ray's record only
+    where the ray shades.  The light rows and texels read are left out (a
+    few KB)."""
+    o, d, thr, rad, alive, draws, hit, _ = c["sample_in"]
+    pos, new_dir, _, flags = c["t3"]
+    r = o.shape[0]
+    k3 = nbytes(o, d, thr, rad, alive, draws, hit.t, hit.hit) + r * 16 * 4 + r * (3 * 3 * 4 + 2)
+    shade = int(flags[:, 0].sum())
+    k4 = nbytes(o, d, thr, hit.tri, pos, new_dir, flags, c["p_light"]) + shade * 16 * 4
+    return k3, k4 + r * (3 * 3 * 4 + 1 + 4)
+
+
+def shade_nodes(smap):
+    """Nodes an iteration of the captured block in the ``shade`` class of
+    the stage map (``shading`` outside its ``intersector``, ``hit_info``
+    and ``light_pdf`` stages), and the node ids."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    ids = []
+    for path, first, last in smap.rows:
+        parts = path.split("/")
+        if "shading" in parts and not {"intersector", "hit_info", "light_pdf"} & set(parts):
+            ids += list(range(first, last + 1))
+    return len(ids) / pt.LOOP_ITERATIONS, ids
+
+
+def twin_chain():
+    """A context in which ``bounce_step`` runs the twins of K3 and K4 on
+    the card (counted wrappers, no launch)."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    def sample(*a):
+        return pt.shade_sample_plain(*a)
+
+    def finish(*a):
+        return pt.shade_finish_plain(*a)
+
+    sample.launches = finish.launches = 0
+    return mock.patch.multiple(pt, shade_sample=sample, shade_finish=finish)
+
+
+def chain_frame(scene, variant):
+    """(frame, stage map, names of the shade nodes of the first replay) of a
+    512x512 @ 1 spp atrium render under ``variant``: "kernels" (graph),
+    "eager" (kernels, the eager loop) or "twins" (graph, the twin chain)."""
+    from tpu_pathtracer_torch.models import pathtracer as pt
+    from tpu_pathtracer_torch.utils import profiling
+
+    pt.clear_compiled_loops()
+    with twin_chain() if variant == "twins" else contextlib.nullcontext():
+        pt.render(scene, spp=1, seed=5, eager=variant == "eager")  # capture
+        torch.cuda.synchronize()
+        if variant == "eager":
+            return pt.render(scene, spp=1, seed=3, eager=True), None, None
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            img = pt.render(scene, spp=1, seed=3)
+    smap = profiling.stage_maps()[-1]
+    evs = list(prof.profiler.kineto_results.events())
+    first = next(ev.correlation_id() for ev in evs if ev.name() == "cudaGraphLaunch")
+    ops = sorted((ev for ev in evs if ev.correlation_id() == first
+                  and str(ev.device_type()).endswith("CUDA")), key=lambda ev: ev.start_ns())
+    _, ids = shade_nodes(smap)
+    names = [ops[i].name() for i in ids] if len(ops) == smap.nodes else None
+    return img, smap, names
+
+
+def phase_shade_chain(tmp, scene, rays_sets, field, env):
+    """K3 (``shade_sample``) and K4 (``shade_finish``) against their twins
+    bit for bit on the atrium's and the env field's rays (phase shading's
+    ray sets), each timed on the secondaries beside its twin and against
+    its bytes' bound; then the shade class of the atrium's captured block
+    and its frame with the kernels (graph and eager) and with the twin
+    chain.  Returns {k3, k4: (ms, twin ms, bytes)} of the atrium."""
+    import numpy as np
+
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import pathtracer as pt
+
+    config = RenderConfig()
+    stride = W * H // N_RAYS
+    env_config = RenderConfig(use_env_map=True, env_map_path=env, add_light_triangle=True)
+    fscene = load_scene(field, env_config)
+    frays = bounce_rays(fscene, env_config, stride)
+    bad = check_chain("atrium", scene, config, rays_sets, 11)
+    bad += check_chain("env field", fscene, env_config, frays, 12)
+    timing = {}
+    for label, sc, cfg, rays in (("atrium", scene, config, rays_sets),
+                                 ("env field", fscene, env_config, frays)):
+        c = chain_case(sc, cfg, *rays["secondary"], 13)
+        row = {}
+        for k, launch, twin, n_bytes in (
+                ("k3", lambda: kernels.shade_sample(*c["a3"]),
+                 lambda: pt.shade_sample_plain(sc, cfg, *c["sample_in"]), chain_bytes(c)[0]),
+                ("k4", lambda: kernels.shade_finish(*c["a4"]),
+                 lambda: pt.shade_finish_plain(sc, cfg, *c["finish_in"]), chain_bytes(c)[1])):
+            ms, plain_ms = queued_ms(launch, 50), sync_ms(twin, 10)
+            bound_ms, bound_by = bound({"fp32": (0, 128)}, n_bytes)
+            row[k] = dict(ms=ms, plain_ms=plain_ms, bytes=n_bytes, bound_ms=bound_ms,
+                          bound_by=bound_by, share=bound_ms / ms)
+        emit("shade_chain_timing", scene=label, rays="secondary", **row, nvidia_smi=card_line())
+        if label == "atrium":
+            timing = {k: (v["ms"], v["plain_ms"], v["bytes"]) for k, v in row.items()}
+    del fscene, frays
+
+    frames, names = {}, {}
+    for variant in ("kernels", "eager", "twins"):
+        reset_launches()
+        img, smap, nm = chain_frame(scene, variant)
+        frames[variant] = img
+        launches = read_launches()
+        if smap is not None:
+            per_iter, _ = shade_nodes(smap)
+            names[variant] = nm
+            emit("shade_chain_map", variant=variant, graph_nodes=smap.nodes,
+                 shade_nodes_per_iteration=per_iter,
+                 shade_names_first_iteration=None if nm is None
+                 else nm[:len(nm) // pt.LOOP_ITERATIONS],
+                 k3=launches["k3"], k4=launches["k4"])
+    equal = {f"{a}_vs_{b}": bool(np.array_equal(frames[a].view(np.uint32),
+                                                frames[b].view(np.uint32)))
+             for a, b in (("kernels", "eager"), ("kernels", "twins"))}
+    emit("shade_chain_frames", **equal, finite=bool(np.isfinite(frames["kernels"]).all()))
+    pt.clear_compiled_loops()
+    kernel_names = names.get("kernels") or []
+    others = [nm for nm in kernel_names if "shade_sample_kernel" not in nm
+              and "shade_finish_kernel" not in nm]
+    if bad or not all(equal.values()):
+        raise AssertionError(f"K3/K4 differ from their twins on {bad} lanes, frames {equal}")
+    if (sum("shade_sample_kernel" in nm for nm in kernel_names) != pt.LOOP_ITERATIONS
+            or sum("shade_finish_kernel" in nm for nm in kernel_names) != pt.LOOP_ITERATIONS
+            or len(others) > 3 * pt.LOOP_ITERATIONS):
+        raise AssertionError(f"the captured shade class is not K3 + K4: {kernel_names}")
+    return timing
 
 
 def phase_goldens_env_lt(tmp):
@@ -2456,6 +2680,16 @@ SHADING_ROWS = (
      "none: a row gather fused with normals, bilinear texture taps and a normal map"),
 )
 
+# K3 and K4 in the kernel line: (counter, name, replaces, note, why no library_ms).
+SHADE_CHAIN_ROWS = (
+    ("k3", "bounce sampling chain (K3)", "tpu_pathtracer/models/pathtracer.py:308",
+     "bounce_step from the env lookup to the new direction, fused by XLA on the TPU",
+     "none: an env tap, the alpha roulette and three direction samplers chosen per ray"),
+    ("k4", "bounce BSDF chain (K4)", "tpu_pathtracer/models/pathtracer.py:308",
+     "bounce_step from the pdf blend to the next ray, fused by XLA on the TPU",
+     "none: two pdfs, the MIS blend, the metallic-roughness BRDF and the kill test"),
+)
+
 
 def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
     """{kernel: (pair tests, lane operations per pair, bytes)} at the timing
@@ -2491,12 +2725,12 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 
 
 def run_only(names):
-    """The phases named (shading, engine, homebrew, sharded, headline,
-    headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
+    """The phases named (shading, shade_chain, engine, homebrew, sharded,
+    headline, headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
     ``headline_full`` runs only when named.  The last line then names the
     phases run; only the full run ends with the contract's line."""
-    unknown = set(names) - {"shading", "engine", "homebrew", "sharded", "headline",
-                            "headline_full"}
+    unknown = set(names) - {"shading", "shade_chain", "engine", "homebrew", "sharded",
+                            "headline", "headline_full"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
     from tpu_pathtracer_torch.scene import fixtures
@@ -2507,12 +2741,15 @@ def run_only(names):
             textured = True
         except ImportError:
             textured = False
-        if "shading" in names:
+        if {"shading", "shade_chain"} & set(names):
             _, _, _, scene, rays_sets = make_inputs(tmp)
             field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
                                                     n_spheres=64, subdiv=3, textured=textured)
-            phase_shading(tmp, scene, rays_sets, field,
-                          fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr")))
+            env = fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr"))
+            if "shading" in names:
+                phase_shading(tmp, scene, rays_sets, field, env)
+            if "shade_chain" in names:
+                phase_shade_chain(tmp, scene, rays_sets, field, env)
             del scene, rays_sets
         path = fixtures.make_atrium_gltf(os.path.join(tmp, "atrium", "atrium.gltf"), detail=2,
                                          textured=textured)
@@ -2561,6 +2798,7 @@ def main(only=()):
         env = fixtures.make_env_hdr(os.path.join(tmp, "field", "env.hdr"))
         field_gen = time.perf_counter() - t0
         errs_k, k2_ulp, times_k, work_k, k1_b3_ms = phase_shading(tmp, scene, rays_sets, field, env)
+        chain_k = phase_shade_chain(tmp, scene, rays_sets, field, env)
 
         # Kernel vs twin time at the main paths' shapes: the initial gated
         # activity pass, the residual item pass, the first-entered-group
@@ -2620,7 +2858,8 @@ def main(only=()):
         phase_golden(tmp)
         phase_goldens_env_lt(tmp)
         main_row = phase_render("main", "atrium 512x512@16spp", path, tmp,
-                                ("b1", "b2", "rng", "k1", "k2"), gen_seconds=gen_seconds)
+                                ("b1", "b2", "rng", "k1", "k2", "k3", "k4"),
+                                gen_seconds=gen_seconds)
         lit_row = phase_render("lights_main", "lit-banner atrium 512x512@16spp", lit_path, tmp,
                                ("b1", "b2", "b3", "rng", "k2"), gen_seconds=lit_gen)
         phase_render("env_main", "sphere field + HDR env map + light triangle 512x512@16spp",
@@ -2701,6 +2940,15 @@ def main(only=()):
             "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
             "library_note": library, "work": {"ops": ops, "bytes": n_bytes},
             **({"b3_route_ms": k1_b3_ms} if k == "k1" else {"max_ulp": k2_ulp})})
+    for k, name, replaces, note, library in SHADE_CHAIN_ROWS:
+        ms, plain_ms, n_bytes = chain_k[k]
+        bound_ms, bound_by = bound({"fp32": (0, 128)}, n_bytes)
+        rows.append({
+            "name": name, "route": "cuda", "source": "tpu_pathtracer_torch/csrc/shade_kernels.cu",
+            "replaces": replaces, "replaces_note": note, "launches": main_row[f"launches_{k}"],
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
+            "library_note": library, "work": {"bytes": n_bytes}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
-"""Kernels K1 (the flat light-cluster pdf, ``ops.intersect.light_pdf_flat``)
-and K2 (``hit_info``'s row gather and texture fetch,
-``models.pathtracer.hit_info``): their plain twins against the JAX
-functions on the same numpy inputs, the CPU dispatch to the twins, the C
+"""Kernels K1 (the flat light-cluster pdf, ``ops.intersect.light_pdf_flat``),
+K2 (``hit_info``'s row gather and texture fetch,
+``models.pathtracer.hit_info``), K3 and K4 (the bounce's sampling / BSDF
+chain before and after the light pdf, ``models.pathtracer.shade_sample``
+and ``shade_finish``): their plain twins against the JAX functions on the
+same numpy inputs (K3's and K4's around the light pdf against the JAX
+package's ``bounce_step``), the CPU dispatch to the twins, the C
 signatures of the kernel library, and (marker ``cuda``) each kernel against
 its twin on the card.
 
@@ -13,7 +16,9 @@ other orders, so floats are held to rtol 1e-5 / atol 1e-6
 ``inside`` flags are exact.  On the card K2 is held to at most 2 ulp from
 its twin (the goal, measured so far, is 0) and K1 to its twin's zero
 pattern with a relative error of at most 1e-5 (its sum over a cluster runs
-in the kernel's own order).  Run the card cases with
+in the kernel's own order); K3 and K4 to their twins bit for bit, and the
+atrium's frame through them to the eager loop's and to the twin chain's
+bit for bit.  Run the card cases with
 ``python -m pytest tests/test_torch_shade_kernels.py -m cuda``.
 """
 
@@ -237,6 +242,128 @@ def test_torch_light_pdf_nan_lanes_add_nothing(n_clusters):
 
 
 # ---------------------------------------------------------------------------
+# K3 / K4: the bounce's sampling / BSDF chain around the light pdf
+# ---------------------------------------------------------------------------
+
+CHAIN_R = 512  # a multiple of the light worklists' ray tile (B3's twin)
+
+
+def _chain_scenes(tmp_path, monkeypatch, env, lights):
+    """(JAX scene, port scene, port config, JAX config) of the Cornell box
+    (lights "rows": its ceiling light, at most 4 clusters; "none": a light
+    set with no rows) or of the thousand-light field ("many": past 512
+    light slots), with the HDR environment map or the background colour;
+    the port's scene is the JAX scene's arrays through the bridge."""
+    from test_torch_many_lights import _thousand_light_gltf
+    from test_torch_scene import jax_config, jax_scene_arrays, same_host_path
+
+    from tpu_pathtracer.scene.gltf import parse_gltf_scene as jax_parse
+    from tpu_pathtracer_torch.bridge import scene_from_arrays
+    from tpu_pathtracer_torch.scene import fixtures
+
+    same_host_path(monkeypatch)
+    config = RenderConfig()
+    if env == "env":
+        config = RenderConfig(use_env_map=True,
+                              env_map_path=fixtures.make_env_hdr(str(tmp_path / "env.hdr")))
+    if lights == "many":
+        path = _thousand_light_gltf(str(tmp_path / "m" / "s.gltf"), True)
+    else:
+        path = fixtures.make_cornell_gltf(str(tmp_path / "c" / "c.gltf"))
+    jconfig = jax_config(config)
+    js = jax_parse(path, 1.0, jconfig)
+    js = dataclasses.replace(js, camera=js.camera.with_dims(16, 16))
+    if lights == "none":
+        js = dataclasses.replace(js, lights=dataclasses.replace(
+            js.lights, verts=jnp.zeros((0, 3, 3), jnp.float32),
+            normal=jnp.zeros((0, 3), jnp.float32), area=jnp.zeros((0,), jnp.float32),
+            count=jnp.asarray(0, jnp.int32), cluster_min=None, cluster_max=None,
+            cluster_woop=None, cluster_k=None))
+    arrays, statics = jax_scene_arrays(js)
+    ts = scene_from_arrays(arrays, {**statics, "width": 16, "height": 16})
+    assert ts.has_env == (env == "env") and ts.lights.capacity == (0 if lights == "none" else
+                                                                   ts.lights.capacity)
+    return js, ts, config, jconfig
+
+
+def _chain_rays(ts, config, seed):
+    """Lanes: the primaries of the camera's pixels and one bounce of them
+    (the secondaries, dead lanes included), with a random throughput and
+    radiance, every 5th lane dead, and the bounce draws of ``config`` at
+    depth 1 (CHAIN_R lanes at 16x16)."""
+    from tpu_pathtracer_torch.ops.rng import jitter_uniforms
+
+    g = torch.Generator().manual_seed(seed)
+    n = ts.camera.width * ts.camera.height
+    pids = torch.arange(n, dtype=torch.int32)
+    o, d = pt.gen_rays(ts.camera, pids, jitter_uniforms(seed, 0, pids))
+    ones = torch.ones(n, dtype=torch.bool)
+    o2, d2, _, _, alive2, _ = pt.bounce_step(ts, config, o, d, torch.ones_like(o),
+                                             torch.zeros_like(o), ones,
+                                             pt.bounce_draws(seed, 0, 0, pids, config))
+    o, d = torch.cat([o, o2]), torch.cat([d, d2])
+    alive = torch.cat([ones, alive2])
+    alive[::5] = False
+    lanes = torch.arange(2 * n, dtype=torch.int32) % n
+    return dict(o=o, d=d, alive=alive, throughput=0.1 + torch.rand((2 * n, 3), generator=g),
+                radiance=torch.rand((2 * n, 3), generator=g),
+                draws=pt.bounce_draws(seed, 0, 1, lanes, config))
+
+
+@pytest.mark.parametrize("lowdisc", ["off", "sobol"])
+@pytest.mark.parametrize("lights", ["rows", "none", "many"])
+@pytest.mark.parametrize("env", ["env", "bg"])
+def test_torch_shade_chain_twins_match_jax_bounce(tmp_path, monkeypatch, env, lights, lowdisc):
+    """K3's and K4's twins around the light pdf (``shade_sample_plain`` ->
+    ``light_pdf`` -> ``shade_finish_plain``) against the JAX package's
+    ``bounce_step`` on the same rays, draws and hits (the port's hits, given
+    to the JAX function): the next bounce's live lanes and sort hints
+    exactly, its origin, direction, throughput and radiance to the module
+    tolerance; with an environment map or the background, light rows (the
+    flat pdf), none, or past 512 light slots (the cluster worklists, where
+    the JAX package on the CPU takes the dense sum), Sobol draws or not."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    js, ts, config, jconfig = _chain_scenes(tmp_path, monkeypatch, env, lights)
+    config = dataclasses.replace(config, lowdisc=lowdisc)
+    jconfig = dataclasses.replace(jconfig, lowdisc=lowdisc)
+    x = _chain_rays(ts, config, seed=7)
+    hit = pt.scene_closest_hit(ts, x["o"], x["d"], config.eps, config.tuning)
+    info = pt.hit_info(ts, x["d"], hit, config)
+    pos, new_dir, radiance, flags = pt.shade_sample_plain(
+        ts, config, x["o"], x["d"], x["throughput"], x["radiance"], x["alive"], x["draws"],
+        hit, info)
+    worklists = []
+    real = ci.run_light_pdf
+    monkeypatch.setattr(ci, "run_light_pdf", lambda *a: worklists.append(1) or real(*a))
+    p_light = pt.light_pdf(ts, pos, new_dir, config.eps)
+    got = pt.shade_finish_plain(ts, config, x["o"], x["d"], x["throughput"], hit, info, pos,
+                                new_dir, flags, p_light)
+    got = dict(zip(("o", "d", "throughput", "alive", "hint"), got), radiance=radiance)
+
+    jhit = jisect.Hit(*(jnp.asarray(a.numpy()) for a in hit))
+    monkeypatch.setattr(jpt, "scene_closest_hit", lambda *a, **k: jhit)
+    j = jnp.asarray
+    want = jpt.bounce_step(js, jconfig, j(x["o"].numpy()), j(x["d"].numpy()),
+                           j(x["throughput"].numpy()), j(x["radiance"].numpy()),
+                           j(x["alive"].numpy()), j(x["draws"].numpy()))
+    want = dict(zip(("o", "d", "throughput", "radiance", "alive", "hint"), want))
+
+    shade, miss = flags[:, 0], x["alive"] & ~hit.hit
+    assert int(shade.sum()) > CHAIN_R // 8 and int(got["alive"].sum()) > CHAIN_R // 8
+    assert bool(miss.any())  # missed live rays take the environment or the background
+    assert (p_light is None) == (lights == "none")
+    assert bool(worklists) == (lights == "many")
+    if p_light is not None:
+        assert bool((p_light[shade] > 0).any())
+    np.testing.assert_array_equal(got["alive"].numpy(), np.asarray(want["alive"]))
+    np.testing.assert_array_equal(got["hint"].numpy(), np.asarray(want["hint"]))
+    for key in ("o", "d", "throughput", "radiance"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and the C interface
 # ---------------------------------------------------------------------------
 
@@ -272,6 +399,59 @@ def test_torch_shading_kernels_refuse_other_devices():
         pt.hit_info(tscene, torch.empty((R, 3), device="meta"), thit, RenderConfig())
 
 
+def _cornell_chain(tmp_path):
+    """The Cornell box at 16x16 and ``_chain_rays``' inputs with their hits
+    and hit record."""
+    from tpu_pathtracer_torch.scene import fixtures
+
+    config = RenderConfig()
+    ts = tgltf.parse_gltf_scene(fixtures.make_cornell_gltf(str(tmp_path / "c.gltf")), 1.0, config)
+    ts = dataclasses.replace(ts, camera=ts.camera.with_dims(16, 16))
+    x = _chain_rays(ts, config, seed=3)
+    x["hit"] = pt.scene_closest_hit(ts, x["o"], x["d"], config.eps, config.tuning)
+    x["info"] = pt.hit_info(ts, x["d"], x["hit"], config)
+    return ts, config, x
+
+
+def test_torch_shade_chain_dispatch_cpu_to_twins(tmp_path, monkeypatch):
+    """CPU tensors run K3's and K4's twins through ``shade_sample`` and
+    ``shade_finish`` (and so through ``bounce_step``), never reach a kernel
+    library, and count no launch; ``bounce_step`` is the twins around the
+    light pdf."""
+    def refuse(name):
+        raise AssertionError(f"CPU tensors reached the kernel library {name}")
+
+    ts, config, x = _cornell_chain(tmp_path)
+    monkeypatch.setattr(kernels, "library", refuse)
+    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    args = (x["o"], x["d"], x["throughput"], x["radiance"], x["alive"], x["draws"], x["hit"],
+            x["info"])
+    got = pt.shade_sample(ts, config, *args)
+    want = pt.shade_sample_plain(ts, config, *args)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    pos, new_dir, radiance, flags = want
+    p_light = pt.light_pdf(ts, pos, new_dir, config.eps)
+    args = (x["o"], x["d"], x["throughput"], x["hit"], x["info"], pos, new_dir, flags, p_light)
+    got = pt.shade_finish(ts, config, *args)
+    want = pt.shade_finish_plain(ts, config, *args)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    step = pt.bounce_step(ts, config, x["o"], x["d"], x["throughput"], x["radiance"], x["alive"],
+                          x["draws"])
+    assert all(_bits_equal(a, b) for a, b in zip(step, want[:3] + (radiance,) + want[3:]))
+    assert (pt.shade_sample.launches, pt.shade_finish.launches) == (n3, n4)
+
+
+def test_torch_shade_chain_refuses_other_devices():
+    """K3's and K4's wrappers raise for a tensor on a device that is neither
+    CUDA nor the CPU: no kernel and no twin runs there."""
+    meta = torch.empty((R, 3), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pt.shade_sample(None, RenderConfig(), meta, meta, meta, meta, None, None, None, None)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pt.shade_finish(None, RenderConfig(), meta, meta, meta, None, None, meta, meta, None,
+                        None)
+
+
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float, "unsigned": ctypes.c_uint}
 
@@ -302,12 +482,13 @@ def test_torch_kernel_entry_point_matches_c_signature(entry):
 def test_torch_kernel_libraries_list_every_entry_point():
     """Every ``.cu`` under ``csrc/`` is a library of ``kernels.LIBRARIES``
     and every ``extern "C"`` function in it is listed (the shade kernels
-    K1 and K2 included)."""
+    K1 to K4 included)."""
     sources = sorted(f[:-3] for f in os.listdir(kernels._CSRC) if f.endswith(".cu"))
     assert sorted(kernels.LIBRARIES) == sources
     for lib in sources:
         assert sorted(kernels.LIBRARIES[lib]) == sorted(_c_entry_points(lib))
-    assert set(kernels.LIBRARIES["shade_kernels"]) == {"tpt_light_pdf_flat", "tpt_shade_gather"}
+    assert set(kernels.LIBRARIES["shade_kernels"]) == {"tpt_light_pdf_flat", "tpt_shade_gather",
+                                                       "tpt_shade_sample", "tpt_shade_finish"}
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +528,26 @@ def test_torch_cuda_sum3_and_scalar_division_orders():
     x = rows[:, 6].contiguous() * 10
     for count in (3, 6, 7):
         assert torch.equal(x / float(count), x * float(np.float32(1.0) / np.float32(count)))
+
+
+@pytest.mark.cuda
+def test_torch_cuda_roundings_k3_k4_copy():
+    """More roundings of PyTorch's CUDA kernels that K3 and K4 copy
+    (``csrc/shade_kernels.cu``): ``torch.sum`` over 3 gives +0 where the
+    terms are all -0 (each lane's partial starts from 0); ``1.0 / x`` is
+    the IEEE divide of ``torch.reciprocal``; ``clamp_min`` and ``clamp``
+    return NaN for NaN; a Python float operand is rounded to float32."""
+    _needs_card()
+    z = torch.full((1024, 3), -0.0, device="cuda")
+    assert not bool(torch.signbit(torch.sum(z, dim=-1)).any())
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand(1 << 20, generator=g) * 10 + 1e-3).cuda()
+    assert torch.equal(1.0 / x, torch.ones_like(x) / x)
+    nan = torch.tensor([float("nan"), -2.0, 2.0], device="cuda")
+    assert torch.isnan(torch.clamp_min(nan, 0.0)[0]) and torch.isnan(torch.clamp(nan, -1, 1)[0])
+    assert torch.equal(torch.clamp(nan, -1.0, 1.0)[1:], torch.tensor([-1.0, 1.0], device="cuda"))
+    pi = float(np.float32(np.pi))
+    assert torch.equal(x * np.pi, x * pi)
 
 
 @pytest.mark.cuda
@@ -392,3 +593,153 @@ def test_torch_shade_gather_kernel_equals_twin(slots, pool):
     assert torch.equal(got["inside"], want["inside"])
     for key in FIELDS:
         assert int(_ulps(got[key], want[key]).max()) <= 2, key
+
+
+def _on_card(scene, config, x):
+    """``_chain_rays``' inputs on the card with their hits and K2's record,
+    every third lane's alpha made 0.3 so the roulette lets rays through."""
+    x = {k: v.cuda() for k, v in x.items()}
+    x["hit"] = pt.scene_closest_hit(scene, x["o"], x["d"], config.eps, config.tuning)
+    rec = pt.hit_info(scene, x["d"], x["hit"], config)["record"].clone()
+    rec[::3, 9] = 0.3
+    x["info"] = dict(normal=rec[:, 0:3], shading_normal=rec[:, 3:6], color=rec[:, 6:10],
+                     emission=rec[:, 10:13], metallic=rec[:, 13], roughness=rec[:, 14],
+                     ior=rec[:, 15], record=rec)
+    return x
+
+
+def _card_scene(tmp_path, name):
+    """(scene on the card, config) of the atrium, the env-lit sphere field
+    with the light triangle, the textured Cornell box or the thousand-light
+    field, with a 32x32 camera (2,048 lanes of ``_chain_rays``: whole ray
+    tiles of the chunk cascade)."""
+    from test_torch_many_lights import _thousand_light_gltf
+
+    from tpu_pathtracer_torch.scene import fixtures
+
+    config = RenderConfig()
+    if name == "atrium":
+        path = fixtures.make_atrium_gltf(str(tmp_path / "a.gltf"), detail=1)
+    elif name == "env_field":
+        path = fixtures.make_sphere_field_gltf(str(tmp_path / "f.gltf"), n_spheres=8, subdiv=2,
+                                               textured=True)
+        config = RenderConfig(use_env_map=True, add_light_triangle=True,
+                              env_map_path=fixtures.make_env_hdr(str(tmp_path / "env.hdr")))
+    elif name == "textured_cornell":
+        path = fixtures.make_textured_cornell_gltf(str(tmp_path / "t.gltf"))
+    else:
+        path = _thousand_light_gltf(str(tmp_path / "m.gltf"), True)
+    scene = tgltf.parse_gltf_scene(path, 1.0, config)
+    return dataclasses.replace(scene, camera=scene.camera.with_dims(32, 32)).to("cuda"), config
+
+
+def _bits_equal(a, b):
+    if a.dtype.is_floating_point:
+        return bool(((a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32))
+                     | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["atrium", "env_field", "textured_cornell", "many_lights"])
+def test_torch_shade_chain_kernels_equal_twins(tmp_path, name):
+    """K3 and K4 against their twins on the card, bit for bit, on primaries
+    and secondaries of the atrium, the env-lit field, the textured Cornell
+    box and the thousand-light field (the light pdf from the cluster
+    worklists), with rays the roulette lets through; one launch each
+    counted."""
+    _needs_card()
+    scene, config = _card_scene(tmp_path, name)
+    x = _on_card(scene, config, _chain_rays(scene.to("cpu"), config, seed=5))
+    args = (x["o"], x["d"], x["throughput"], x["radiance"], x["alive"], x["draws"], x["hit"],
+            x["info"])
+    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    got = pt.shade_sample(scene, config, *args)
+    want = pt.shade_sample_plain(scene, config, *args)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    pos, new_dir, _, flags = want
+    assert int(flags[:, 1].sum()) > 0 and int(flags[:, 0].sum()) > 0
+    p_light = pt.light_pdf(scene, pos, new_dir, config.eps)
+    args = (x["o"], x["d"], x["throughput"], x["hit"], x["info"], pos, new_dir, flags, p_light)
+    got = pt.shade_finish(scene, config, *args)
+    want = pt.shade_finish_plain(scene, config, *args)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert (pt.shade_sample.launches, pt.shade_finish.launches) == (n3 + 1, n4 + 1)
+
+
+def _twin_chain(monkeypatch):
+    """Make ``bounce_step`` run K3's and K4's twins on the card."""
+    def sample(*a):
+        return pt.shade_sample_plain(*a)
+
+    def finish(*a):
+        return pt.shade_finish_plain(*a)
+
+    sample.launches = finish.launches = 0
+    monkeypatch.setattr(pt, "shade_sample", sample)
+    monkeypatch.setattr(pt, "shade_finish", finish)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["persistent", "scan_sobol", "bins"])
+def test_torch_shade_chain_frames_on_card(tmp_path, monkeypatch, engine):
+    """The atrium at 64x64 @ 2 spp with K3 and K4 equals, bit for bit, the
+    frame of the twin chain and the eager loop's frame: under the
+    persistent engine's graph, the scan engine with Sobol draws, and the
+    intersector's "bins" mode (the eager loop on the card)."""
+    from tpu_pathtracer_torch.config import IntersectTuning
+
+    _needs_card()
+    scene, config = _card_scene(tmp_path, "atrium")
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(64, 64))
+    if engine == "scan_sobol":
+        config = dataclasses.replace(config, compaction=False, lowdisc="sobol")
+    elif engine == "bins":
+        config = dataclasses.replace(config, tuning=IntersectTuning(mode="bins"))
+    pt.clear_compiled_loops()
+    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    frame = pt.render(scene, spp=2, seed=9, config=config)
+    eager = pt.render(scene, spp=2, seed=9, config=config, eager=True)
+    assert pt.shade_sample.launches > n3 and pt.shade_finish.launches > n4
+    with monkeypatch.context() as m:
+        _twin_chain(m)
+        pt.clear_compiled_loops()
+        twins = pt.render(scene, spp=2, seed=9, config=config)
+    pt.clear_compiled_loops()
+    assert np.isfinite(frame).all() and frame.mean() > 0
+    assert np.array_equal(frame.view(np.uint32), eager.view(np.uint32))
+    assert np.array_equal(frame.view(np.uint32), twins.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_torch_shade_chain_stage_map_on_card(tmp_path):
+    """In the captured block of the persistent loop the ``shade`` class of
+    the stage map (``shading`` outside its intersector, hit record and
+    light pdf) is K3 and K4 once an iteration, plus at most three copies or
+    fills an iteration."""
+    from tpu_pathtracer_torch.utils import profiling
+
+    _needs_card()
+    scene, config = _card_scene(tmp_path, "atrium")
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(128, 128))
+    pt.clear_compiled_loops()
+    pt.render(scene, spp=1, seed=0, config=config)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pt.render(scene, spp=1, seed=1, config=config)
+    smap = profiling.stage_maps()[-1]
+    evs = list(prof.profiler.kineto_results.events())
+    first = next(ev.correlation_id() for ev in evs if ev.name() == "cudaGraphLaunch")
+    ops = sorted((ev for ev in evs if ev.correlation_id() == first
+                  and str(ev.device_type()).endswith("CUDA")), key=lambda ev: ev.start_ns())
+    assert len(ops) == smap.nodes
+    names = []
+    for path, lo, hi in smap.rows:
+        parts = path.split("/")
+        if "shading" in parts and not {"intersector", "hit_info", "light_pdf"} & set(parts):
+            names += [ops[i].name() for i in range(lo, hi + 1)]
+    pt.clear_compiled_loops()
+    k = pt.LOOP_ITERATIONS
+    assert sum("shade_sample_kernel" in n for n in names) == k
+    assert sum("shade_finish_kernel" in n for n in names) == k
+    assert len(names) <= 2 * k + 3 * k, names

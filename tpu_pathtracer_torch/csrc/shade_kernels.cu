@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels of two functions of the shading stage
-// that the JAX package leaves to XLA: the flat light-cluster pdf (K1) and the
-// hit record with its texture fetch (K2).
+// Hand-written Hopper (sm_90a) kernels of the shading stage, which the JAX
+// package leaves to XLA: the flat light-cluster pdf (K1), the hit record with
+// its texture fetch (K2), and the sampling / BSDF chain of the bounce split
+// around the light pdf (K3 before it, K4 after it).
 //
 // Built by tpu_pathtracer_torch/kernels.py like the other kernel libraries
 // (nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false, a plain C
@@ -17,7 +18,18 @@
 // and the warp's shuffle adds the two (ATen/native/cuda/Reduce.cuh:
 // set_block_dimension, thread_reduce_impl, block_x_reduce).  sum3 is that
 // order, (a0 + a2) + a1 (tests/test_torch_shade_kernels.py holds torch.sum
-// to it on the card, contiguous and strided).
+// to it on the card, contiguous and strided).  Each lane's partial starts
+// from the reduction's identity, 0 + x, so PyTorch never returns -0: sum3
+// adds a last + 0.0f, which turns -0 into +0 and leaves every other value.
+//
+// Other roundings of PyTorch's CUDA kernels that K3 and K4 copy.  A Python
+// float operand is cast to float32 first (kPi becomes 3.14159274f); a
+// division by one is a product with its float32 reciprocal (x / PI is
+// x * (1.0f / (float)PI)), while 1.0 / x is torch.reciprocal, an IEEE
+// divide; clamp_min and clamp return a NaN input unchanged and else take
+// fmaxf / fminf, as ATen's clamp kernels do; x**5 is x * ((x*x) * (x*x)).
+// cosf, sinf, atan2f, asinf, sqrtf and powf are the functions PyTorch's
+// kernels call, none of their fast intrinsics.
 //
 // ---------------------------------------------------------------------------
 // K1  light_pdf_flat_kernel
@@ -74,6 +86,44 @@
 //   bit for bit.  The slot bits and the pool's form are launch arguments,
 //   the same for every ray, so no ray's rounding depends on a branch; a
 //   missed ray (tri 0, beta = gamma = 0) gathers row 0 as the twin does.
+//
+// K3  shade_sample_kernel
+//   Replaces no Pallas kernel: the first half of tpu_pathtracer/models/
+//   pathtracer.py:308 (bounce_step) after hit_info, with ops/sampling.py and
+//   the equirect lookup of ops/texture.py (env_radiance), fused by XLA.
+//   Twin: models/pathtracer.shade_sample_plain.
+//   Per ray: the environment radiance of a missed live ray (the gamma-2.2
+//   bilinear tap at the direction's (u, v), K2's fetch) or bg_color, times
+//   the throughput, added to the radiance; hit point o + t d; the alpha
+//   Russian roulette (draw 0 against the record's alpha: passthrough or
+//   shade); the emission of a shaded hit added; the new direction: the
+//   VNDF sample where draw 1 <= vndf_factor, else the light-triangle
+//   sample where draw 4 picks the light and the set has lights, else the
+//   cosine sample.  Writes pos, new_dir, radiance [R, 3] and the flags
+//   [R, 2] (shade, passthrough).
+//   Design: one thread a ray, everything in registers.  Only the direction
+//   chosen is computed, and the environment only for a missed live ray: the
+//   twin computes every lobe on every lane and then selects, which gives
+//   the same bits.  The scene's shape comes in as launch arguments (env map
+//   id or -1, the light rows or null, the light count), the same for every
+//   ray.
+//
+// K4  shade_finish_kernel
+//   Replaces no Pallas kernel: the second half of the same bounce_step,
+//   after the light pdf, with ops/bsdf.py.  Twin:
+//   models/pathtracer.shade_finish_plain.
+//   Per shaded ray: the VNDF pdf and the cosine pdf of the new direction,
+//   the mixture with the light pdf (p_light, or none: a launch argument),
+//   the MIS blend, the glTF metallic-roughness BRDF, the cosine term, the
+//   kill test (a NaN direction, p < eps, or a throughput factor of length
+//   0).  Per ray: the throughput, origin and direction of the next bounce,
+//   moved (passthrough or continued) and the next bounce's sort hint (the
+//   hit's chunk id).
+//   Bound of K3 and K4 on the H100: bytes.  K3 reads ~160 bytes a ray (o,
+//   d, throughput, radiance, 10 draws, t, the flags and the 64-byte record)
+//   and writes 38; K4 reads ~120 and writes 41; each does a few hundred
+//   lane operations.  The twins run ~400-500 device operations over [R]
+//   and [R, 3] tensors between them.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -89,7 +139,9 @@ constexpr int kFlatLights = 512;     // clusters x lanes a block stages (4 x 128
 constexpr int kShadeThreads = 128;   // rays per shading block
 constexpr int kRow = 48;             // floats of a shade_attrs row
 
-__device__ __forceinline__ float sum3(float a0, float a1, float a2) { return (a0 + a2) + a1; }
+__device__ __forceinline__ float sum3(float a0, float a1, float a2) {
+  return ((a0 + a2) + a1) + 0.0f;
+}
 
 __global__ void __launch_bounds__(kFlatThreads) light_pdf_flat_kernel(
     const float* __restrict__ origin,     // [R, 3]
@@ -321,6 +373,311 @@ __global__ void __launch_bounds__(kShadeThreads) shade_gather_kernel(
   inside[i] = in ? 1 : 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// K3 / K4: the sampling / BSDF chain.  Each helper is the twin's function of
+// the same name (ops/sampling.py, ops/bsdf.py, ops/vecmath.py), op for op.
+
+constexpr double kPi = 3.141592653589793;  // math.pi
+constexpr float kPiF = (float)kPi;
+constexpr float kTwoPiF = (float)(2.0 * kPi);
+constexpr float kInvPiF = 1.0f / kPiF;   // x / math.pi on the card
+
+__device__ __forceinline__ float clamp_min(float v, float lo) { return isnan(v) ? v : fmaxf(v, lo); }
+
+__device__ __forceinline__ float clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ Vec3 add3(Vec3 a, Vec3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ Vec3 sub3(Vec3 a, Vec3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ Vec3 mul3(Vec3 a, Vec3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ Vec3 scale3(float s, Vec3 a) { return {s * a.x, s * a.y, s * a.z}; }
+__device__ __forceinline__ Vec3 pick3(bool c, Vec3 a, Vec3 b) { return c ? a : b; }
+
+__device__ __forceinline__ Vec3 load3(const float* p, int i) {
+  return {p[3 * (size_t)i], p[3 * (size_t)i + 1], p[3 * (size_t)i + 2]};
+}
+
+__device__ __forceinline__ void store3(float* p, int i, Vec3 v) {
+  p[3 * (size_t)i] = v.x;
+  p[3 * (size_t)i + 1] = v.y;
+  p[3 * (size_t)i + 2] = v.z;
+}
+
+// Uniform integer in [0, count) from a U[0,1) draw (pick_uniform).
+__device__ __forceinline__ int pick_uniform(float u, int count) {
+  const int idx = (int)floorf(u * (float)count);
+  return min(max(idx, 0), max(count - 1, 0));
+}
+
+// VNDF_dist::choose_local_x.
+__device__ __forceinline__ Vec3 choose_local_x(Vec3 n) {
+  const float s = sum3(n.x, n.y, n.z);
+  const bool use_x = fabsf(n.x) > 0.5f;
+  const bool use_y = !use_x && fabsf(n.y) > 0.5f;
+  const bool use_z = !(use_x || use_y);
+  const float denom = use_x ? n.x : (use_y ? n.y : n.z);
+  const float corr = s / denom;
+  return normalize3({1.0f - corr * (use_x ? 1.0f : 0.0f), 1.0f - corr * (use_y ? 1.0f : 0.0f),
+                     1.0f - corr * (use_z ? 1.0f : 0.0f)});
+}
+
+// reflect(normal, in_dir): in - (2 n) <in, n>.
+__device__ __forceinline__ Vec3 reflect3(Vec3 n, Vec3 in) {
+  const float k = dot3(in, n);
+  return sub3(in, scale3(k, scale3(2.0f, n)));
+}
+
+// VNDF_dist::sample with the GGX alpha ``r`` (the clamped roughness squared).
+__device__ __forceinline__ Vec3 vndf_sample(float r, Vec3 in, Vec3 n, float u1, float u2) {
+  const Vec3 nx = choose_local_x(n);
+  const Vec3 ny = cross3(n, nx);
+  const Vec3 v = neg3(normalize3({dot3(nx, in), dot3(ny, in), dot3(n, in)}));
+  const Vec3 vh = normalize3({r * v.x, r * v.y, 1.0f * v.z});
+  const float lensq = vh.x * vh.x + vh.y * vh.y;
+  Vec3 t1 = {1.0f, 0.0f, 0.0f};
+  if (lensq > 0.0f) {
+    const float len = sqrtf(clamp_min(lensq, (float)1e-38));
+    t1 = {-vh.y / len, vh.x / len, 0.0f / len};
+  }
+  const Vec3 t2 = cross3(vh, t1);
+  const float rr = sqrtf(u1);
+  const float phi = kTwoPiF * u2;
+  const float c1 = rr * cosf(phi);
+  float c2 = rr * sinf(phi);
+  const float s = 0.5f * (vh.z + 1.0f);
+  c2 = (1.0f - s) * sqrtf(clamp_min(1.0f - c1 * c1, 0.0f)) + s * c2;
+  const float ch = sqrtf(clamp_min((1.0f - c1 * c1) - c2 * c2, 0.0f));
+  const Vec3 nh = add3(add3(scale3(c1, t1), scale3(c2, t2)), scale3(ch, vh));
+  const Vec3 ne = normalize3({r * nh.x, r * nh.y, clamp_min(nh.z, 0.0f)});
+  const Vec3 res = normalize3(add3(add3(scale3(ne.x, nx), scale3(ne.y, ny)), scale3(ne.z, n)));
+  return reflect3(res, in);
+}
+
+// cosine_dist::sample: norm(n + uniform sphere point).
+__device__ __forceinline__ Vec3 cosine_sample(Vec3 n, float u_z, float u_phi) {
+  const float z = u_z * 2.0f - 1.0f;
+  const float co_z = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+  const float phi = kTwoPiF * u_phi;
+  return normalize3(add3(n, {co_z * cosf(phi), co_z * sinf(phi), z}));
+}
+
+// triangle_dist::sample: a uniform point of the triangle (square fold), then
+// the direction from x.
+__device__ __forceinline__ Vec3 light_triangle_sample(Vec3 x, Vec3 a, Vec3 b, Vec3 c, float u,
+                                                      float v) {
+  const bool flip = (u + v) > 1.0f;
+  const float uu = flip ? 1.0f - u : u;
+  const float vv = flip ? 1.0f - v : v;
+  const Vec3 p = add3(add3(a, scale3(vv, sub3(b, a))), scale3(uu, sub3(c, a)));
+  return normalize3(sub3(p, x));
+}
+
+// VNDF_dist::pdf with the GGX alpha ``r``.
+__device__ __forceinline__ float vndf_pdf(float r, Vec3 in, Vec3 n, Vec3 dir, float eps) {
+  const Vec3 nx = choose_local_x(n);
+  const Vec3 ny = cross3(n, nx);
+  const Vec3 v = {-dot3(nx, in), -dot3(ny, in), -dot3(n, in)};
+  const Vec3 nv = normalize3(sub3(dir, in));
+  const Vec3 m = {dot3(nx, nv), dot3(ny, nv), dot3(n, nv)};
+  const float vdn = dot3(v, m);
+  const float r2 = r * r;
+  const float lam = (sqrtf((v.x * v.x + v.y * v.y) * r2 / (v.z * v.z) + 1.0f) + -1.0f) * 0.5f;
+  const float g1 = 1.0f / (lam + 1.0f);
+  const float len_ns = (m.x * m.x + m.y * m.y) / (r * r) + m.z * m.z;
+  const float dn = 1.0f / (kPiF * r * r * len_ns * len_ns);
+  const float dv = g1 * vdn * dn / clamp_min(v.z, eps);
+  const float res = dv / (4.0f * vdn);
+  return vdn <= 0.0f ? 0.0f : res;
+}
+
+__device__ __forceinline__ float heaviside(float x) { return x > 0.0f ? 1.0f : 0.0f; }
+
+__device__ __forceinline__ float pow5(float x) {
+  const float x2 = x * x;
+  return x * (x2 * x2);
+}
+
+// pbr_brdf: the metallic lerp of the dielectric (Fresnel mix of Lambert and
+// GGX) and the metallic (conductor Fresnel of GGX) BRDFs.
+__device__ __forceinline__ Vec3 pbr_brdf(Vec3 in, Vec3 out, Vec3 n, Vec3 base, float metallic,
+                                         float roughness, float ior, float min_roughness) {
+  const float a = clamp_min(roughness, min_roughness);
+  const float alpha = a * a;
+  // specular_brdf
+  const Vec3 h = normalize3(sub3(out, in));
+  const float ndh = dot3(n, h);
+  const float a2 = alpha * alpha;
+  const float den = ndh * ndh * (a2 - 1.0f) + 1.0f;
+  const float dist = a2 * heaviside(ndh) / (kPiF * (den * den));
+  const float ndo = dot3(n, out);
+  const float ndi = dot3(n, neg3(in));
+  const float div1 = fabsf(ndo) + sqrtf(a2 + (1.0f - a2) * ndo * ndo);
+  const float div2 = fabsf(ndi) + sqrtf(a2 + (1.0f - a2) * ndi * ndi);
+  const float vis = heaviside(dot3(h, out)) * heaviside(dot3(h, neg3(in))) / (div1 * div2);
+  const float spec = vis * dist;
+  const float vdh = dot3(neg3(in), h);
+  const float p5 = pow5(1.0f - fabsf(vdh));
+  // fresnel_mix of diffuse_brdf and the specular lobe
+  const float rr = (1.0f - ior) / (ior + 1.0f);
+  const float f0 = rr * rr;
+  const float fr = f0 + (1.0f - f0) * p5;
+  const float b[3] = {base.x, base.y, base.z};
+  float res[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float dielectric = b[k] * kInvPiF * (1.0f - fr) + spec * fr;
+    const float metal = spec * (b[k] + (1.0f - b[k]) * p5);  // conductor_fresnel
+    res[k] = (metallic < 1.0f ? (1.0f - metallic) * dielectric : 0.0f) +
+             (metallic > 0.0f ? metallic * metal : 0.0f);
+  }
+  return {res[0], res[1], res[2]};
+}
+
+// Scene::bg_at, the equirect lookup: the gamma-2.2 bilinear tap at the
+// direction's (u, v), times bg_color.
+__device__ __forceinline__ Vec3 env_radiance(const Atlas& at, int env_tex, const float* bg,
+                                             Vec3 d) {
+  const float u = 0.5f * atan2f(d.z, d.x) * kInvPiF + 0.5f;
+  const float v = 0.5f - asinf(clamp(d.y, -1.0f, 1.0f)) * kInvPiF;
+  const float4 c = fetch(at, env_tex, wrap_repeat(u), wrap_repeat(v), true);
+  return {bg[0] * c.x, bg[1] * c.y, bg[2] * c.z};
+}
+
+// The record's fields (K2's layout): normal 0-2, shading normal 3-5, color
+// 6-9, emission 10-12, metallic 13, roughness 14, ior 15.
+struct Record {
+  Vec3 normal, shading;
+  float4 color;
+  Vec3 emission;
+  float metallic, roughness, ior;
+};
+
+__device__ __forceinline__ Record load_record(const float4* rec, int i) {
+  const float4 a = rec[4 * (size_t)i], b = rec[4 * (size_t)i + 1], c = rec[4 * (size_t)i + 2],
+               e = rec[4 * (size_t)i + 3];
+  return {{a.x, a.y, a.z}, {a.w, b.x, b.y}, make_float4(b.z, b.w, c.x, c.y), {c.z, c.w, e.x},
+          e.y, e.z, e.w};
+}
+
+__global__ void __launch_bounds__(kShadeThreads) shade_sample_kernel(
+    const float* __restrict__ origin,      // [R, 3]
+    const float* __restrict__ direction,   // [R, 3]
+    const float* __restrict__ throughput,  // [R, 3]
+    const float* __restrict__ radiance,    // [R, 3]
+    const uint8_t* __restrict__ alive,     // [R] bool
+    const float* __restrict__ draws,       // [10, R]
+    const float* __restrict__ t_hit,       // [R]
+    const uint8_t* __restrict__ hit,       // [R] bool
+    const float4* __restrict__ record,     // [R, 16]
+    const float* __restrict__ light_verts, // [L, 9], or null: no light rows
+    int n_lights, const float* __restrict__ bg_color, Atlas atlas, int env_tex, float vf,
+    float min_roughness, int n_rays,
+    float* __restrict__ pos_out,           // [R, 3]
+    float* __restrict__ dir_out,           // [R, 3]
+    float* __restrict__ radiance_out,      // [R, 3]
+    uint8_t* __restrict__ flags) {         // [R, 2] bool: shade, passthrough
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const size_t n = (size_t)n_rays;
+  const Vec3 o = load3(origin, i), d = load3(direction, i), thr = load3(throughput, i);
+  Vec3 rad = load3(radiance, i);
+  const bool live_in = alive[i] != 0, is_hit = hit[i] != 0;
+  const Record rc = load_record(record, i);
+
+  Vec3 add = {0.0f, 0.0f, 0.0f};
+  if (live_in && !is_hit) {
+    const Vec3 env = env_tex >= 0 ? env_radiance(atlas, env_tex, bg_color, d)
+                                  : Vec3{bg_color[0], bg_color[1], bg_color[2]};
+    add = mul3(thr, env);
+  }
+  rad = add3(rad, add);
+
+  const bool live = live_in && is_hit;
+  const float t = t_hit[i];
+  const Vec3 pos = add3(o, scale3(t, d));
+  const bool alpha_pass = draws[i] > rc.color.w;
+  const bool passthrough = live && alpha_pass;
+  const bool shade = live && !alpha_pass;
+  rad = add3(rad, shade ? mul3(thr, rc.emission) : Vec3{0.0f, 0.0f, 0.0f});
+
+  Vec3 new_dir;
+  if (draws[n + i] <= vf) {
+    const float a = clamp_min(rc.roughness, min_roughness);
+    new_dir = vndf_sample(a * a, d, rc.shading, draws[2 * n + i], draws[3 * n + i]);
+  } else {
+    bool pick_light = false;
+    int li = 0;
+    if (light_verts != nullptr) {
+      pick_light = pick_uniform(draws[4 * n + i], 2) == 1 && n_lights > 0;
+      li = pick_uniform(draws[7 * n + i], n_lights);
+    }
+    if (pick_light) {
+      const float* lv = light_verts + (size_t)li * 9;
+      new_dir = light_triangle_sample(pos, {lv[0], lv[1], lv[2]}, {lv[3], lv[4], lv[5]},
+                                      {lv[6], lv[7], lv[8]}, draws[8 * n + i], draws[9 * n + i]);
+    } else {
+      new_dir = cosine_sample(rc.normal, draws[5 * n + i], draws[6 * n + i]);
+    }
+  }
+  store3(pos_out, i, pos);
+  store3(dir_out, i, new_dir);
+  store3(radiance_out, i, rad);
+  flags[2 * (size_t)i] = shade ? 1 : 0;
+  flags[2 * (size_t)i + 1] = passthrough ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kShadeThreads) shade_finish_kernel(
+    const float* __restrict__ origin,      // [R, 3]
+    const float* __restrict__ direction,   // [R, 3]
+    const float* __restrict__ throughput,  // [R, 3]
+    const int32_t* __restrict__ tri,       // [R]
+    const float4* __restrict__ record,     // [R, 16]
+    const float* __restrict__ pos,         // [R, 3]
+    const float* __restrict__ new_dir,     // [R, 3]
+    const uint8_t* __restrict__ flags,     // [R, 2] bool: shade, passthrough
+    const float* __restrict__ p_light,     // [R], or null: the cosine lobe alone
+    float vf, float one_minus_vf, float eps, float min_roughness, int chunk_tris, int n_rays,
+    float* __restrict__ origin_out,        // [R, 3]
+    float* __restrict__ direction_out,     // [R, 3]
+    float* __restrict__ throughput_out,    // [R, 3]
+    uint8_t* __restrict__ moved_out,       // [R] bool
+    int32_t* __restrict__ hint_out) {      // [R]
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const bool shade = flags[2 * (size_t)i] != 0, passthrough = flags[2 * (size_t)i + 1] != 0;
+  const Vec3 d = load3(direction, i), nd = load3(new_dir, i);
+  Vec3 thr = load3(throughput, i);
+  bool cont = false;
+  if (shade) {
+    const Record rc = load_record(record, i);
+    const float a = clamp_min(rc.roughness, min_roughness);
+    const float p_vndf = vndf_pdf(a * a, d, rc.shading, nd, eps);
+    const float p_cos = clamp_min(dot3(rc.normal, nd) * kInvPiF, 0.0f);
+    const float p_mix = p_light != nullptr ? (p_cos + p_light[i]) * 0.5f : p_cos;
+    const float p = vf * p_vndf + one_minus_vf * p_mix;
+    const Vec3 f = pbr_brdf(d, nd, rc.shading, {rc.color.x, rc.color.y, rc.color.z},
+                            rc.metallic, rc.roughness, rc.ior, min_roughness);
+    const float cos_term = clamp_min(dot3(nd, rc.shading), 0.0f);
+    const float q = cos_term / p;
+    const Vec3 scl = {f.x * q, f.y * q, f.z * q};
+    const bool kill = isnan(nd.x) || isnan(nd.y) || isnan(nd.z) || p < eps ||
+                      dot3(scl, scl) == 0.0f;
+    cont = !kill;
+    if (cont) thr = mul3(thr, scl);
+  }
+  const bool moved = passthrough || cont;
+  const int32_t tr = tri[i];
+  int32_t chunk = tr / chunk_tris;  // floor division, as torch.div(..., "floor")
+  if ((tr % chunk_tris != 0) && ((tr < 0) != (chunk_tris < 0))) chunk -= 1;
+  store3(origin_out, i, moved ? load3(pos, i) : load3(origin, i));
+  store3(direction_out, i, cont ? nd : d);
+  store3(throughput_out, i, thr);
+  moved_out[i] = moved ? 1 : 0;
+  hint_out[i] = moved ? chunk : -1;
+}
+
 }  // namespace
 
 extern "C" int tpt_light_pdf_flat(
@@ -347,5 +704,42 @@ extern "C" int tpt_shade_gather(
                         (cudaStream_t)stream>>>(
       (const float*)attrs, (const int32_t*)tri, (const float*)beta, (const float*)gamma,
       (const float*)direction, atlas, n_rays, slots, (float4*)record, (uint8_t*)inside);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_shade_sample(
+    const void* origin, const void* direction, const void* throughput, const void* radiance,
+    const void* alive, const void* draws, const void* t_hit, const void* hit, const void* record,
+    const void* light_verts, int n_lights, const void* bg_color, const void* texels,
+    const void* quad, const void* offset, const void* width, const void* height, int env_tex,
+    float vf, float min_roughness, int n_rays, void* pos, void* new_dir, void* radiance_out,
+    void* flags, void* stream) {
+  if (n_rays == 0) return 0;
+  const Atlas atlas = {(const float4*)texels, (const float4*)quad, (const int32_t*)offset,
+                       (const int32_t*)width, (const int32_t*)height};
+  shade_sample_kernel<<<(n_rays + kShadeThreads - 1) / kShadeThreads, kShadeThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)origin, (const float*)direction, (const float*)throughput,
+      (const float*)radiance, (const uint8_t*)alive, (const float*)draws, (const float*)t_hit,
+      (const uint8_t*)hit, (const float4*)record, (const float*)light_verts, n_lights,
+      (const float*)bg_color, atlas, env_tex, vf, min_roughness, n_rays, (float*)pos,
+      (float*)new_dir, (float*)radiance_out, (uint8_t*)flags);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_shade_finish(
+    const void* origin, const void* direction, const void* throughput, const void* tri,
+    const void* record, const void* pos, const void* new_dir, const void* flags,
+    const void* p_light, float vf, float one_minus_vf, float eps, float min_roughness,
+    int chunk_tris, int n_rays, void* origin_out, void* direction_out, void* throughput_out,
+    void* moved, void* hint, void* stream) {
+  if (n_rays == 0) return 0;
+  shade_finish_kernel<<<(n_rays + kShadeThreads - 1) / kShadeThreads, kShadeThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)origin, (const float*)direction, (const float*)throughput,
+      (const int32_t*)tri, (const float4*)record, (const float*)pos, (const float*)new_dir,
+      (const uint8_t*)flags, (const float*)p_light, vf, one_minus_vf, eps, min_roughness,
+      chunk_tris, n_rays, (float*)origin_out, (float*)direction_out, (float*)throughput_out,
+      (uint8_t*)moved, (int32_t*)hint);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,9 @@ outputs, launch, and raise when the launch reports a CUDA error.  The
 dispatching wrappers with their plain twins and launch counters live in
 ``ops/chunk_intersect.py`` (B1-B7), ``ops/rng.py`` (the threefry draws),
 ``ops/intersect.py`` (K1, the flat light-cluster pdf) and
-``models/pathtracer.py`` (K2, ``hit_info``'s row gather and texture fetch).
+``models/pathtracer.py`` (K2, ``hit_info``'s row gather and texture fetch;
+K3 and K4, the bounce's sampling / BSDF chain before and after the light
+pdf).
 No launch makes a runtime call that a CUDA graph capture refuses: B2's and
 B6's persistent grids (and B6's shared-memory attribute) are set at their
 first launch and kept.
@@ -64,6 +66,8 @@ LIBRARIES = {
     "shade_kernels": {
         "tpt_light_pdf_flat": [_P] * 4 + [_I] * 3 + [_F, _F] + [_P, _P],
         "tpt_shade_gather": [_P] * 10 + [_I, _I] + [_P] * 3,
+        "tpt_shade_sample": [_P] * 10 + [_I] + [_P] * 6 + [_I, _F, _F, _I] + [_P] * 5,
+        "tpt_shade_finish": [_P] * 9 + [_F] * 4 + [_I, _I] + [_P] * 6,
     },
 }
 
@@ -497,6 +501,15 @@ def light_pdf_flat(origin, direction, cluster_woop, cluster_k, light_count: int,
     return out
 
 
+def _check_atlas(atlas, dev) -> None:
+    k = atlas.offset.shape[0]
+    _check(atlas.texels, "texels", torch.float32, (atlas.texels.shape[0], 4), dev)
+    if atlas.quad is not None:
+        _check(atlas.quad, "quad", torch.float32, (atlas.texels.shape[0], 16), dev)
+    for name in ("offset", "width", "height"):
+        _check(getattr(atlas, name), name, torch.int32, (k,), dev)
+
+
 def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
     """Launch K2 (contract: ``models.pathtracer.hit_info_plain``): the hit
     record [R, 16] (normal 3, shading normal 3, color 4, emission 3,
@@ -507,7 +520,6 @@ def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
     dev = direction.device
     r = direction.shape[0]
     n = shade_attrs.shape[0]
-    k = atlas.offset.shape[0]
     if not 0 <= slots < 16 or n == 0:
         raise ValueError(f"shade_gather: slots={slots} rows={n}")
     _check(shade_attrs, "shade_attrs", torch.float32, (n, 48), dev)
@@ -515,11 +527,7 @@ def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
     _check(beta, "beta", torch.float32, (r,), dev)
     _check(gamma, "gamma", torch.float32, (r,), dev)
     _check(direction, "direction", torch.float32, (r, 3), dev)
-    _check(atlas.texels, "texels", torch.float32, (atlas.texels.shape[0], 4), dev)
-    if atlas.quad is not None:
-        _check(atlas.quad, "quad", torch.float32, (atlas.texels.shape[0], 16), dev)
-    for name in ("offset", "width", "height"):
-        _check(getattr(atlas, name), name, torch.int32, (k,), dev)
+    _check_atlas(atlas, dev)
     record = torch.empty((r, 16), dtype=torch.float32, device=dev)
     inside = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -531,3 +539,85 @@ def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
         )
     _raise_on(rc, "shade_gather")
     return record, inside
+
+
+def shade_sample(origin, direction, throughput, radiance, alive, draws, t, hit, record,
+                 light_verts, light_count: int, bg_color, atlas, env_tex: int,
+                 vndf_factor: float, min_roughness: float):
+    """Launch K3 (contract: ``models.pathtracer.shade_sample_plain``): (pos,
+    new_dir, radiance) [R, 3] each and flags [R, 2] bool (shade,
+    passthrough).  ``light_verts`` [L, 9] or None (a light set with no
+    rows); ``env_tex`` the environment map's atlas id, or -1 for
+    ``bg_color``."""
+    dev = direction.device
+    r = direction.shape[0]
+    n_draws = draws.shape[0]
+    for name, x in (("origin", origin), ("direction", direction), ("throughput", throughput),
+                    ("radiance", radiance)):
+        _check(x, name, torch.float32, (r, 3), dev)
+    _check(alive, "alive", torch.bool, (r,), dev)
+    _check(draws, "draws", torch.float32, (n_draws, r), dev)
+    if n_draws != 10:
+        raise ValueError(f"shade_sample: want 10 draws a ray, got {n_draws}")
+    _check(t, "t", torch.float32, (r,), dev)
+    _check(hit, "hit", torch.bool, (r,), dev)
+    _check(record, "record", torch.float32, (r, 16), dev)
+    if light_verts is not None:
+        _check(light_verts, "light_verts", torch.float32, (light_verts.shape[0], 9), dev)
+        if not 0 <= light_count <= light_verts.shape[0]:
+            raise ValueError(f"shade_sample: {light_count} lights in {light_verts.shape[0]} rows")
+    _check(bg_color, "bg_color", torch.float32, (3,), dev)
+    _check_atlas(atlas, dev)
+    if not -1 <= env_tex < atlas.offset.shape[0]:
+        raise ValueError(f"shade_sample: env_tex={env_tex}")
+    pos = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    new_dir = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    rad = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    flags = torch.empty((r, 2), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("shade_kernels").tpt_shade_sample(
+            _ptr(origin), _ptr(direction), _ptr(throughput), _ptr(radiance), _ptr(alive),
+            _ptr(draws), _ptr(t), _ptr(hit), _ptr(record), _ptr(light_verts), int(light_count),
+            _ptr(bg_color), _ptr(atlas.texels), _ptr(atlas.quad), _ptr(atlas.offset),
+            _ptr(atlas.width), _ptr(atlas.height), int(env_tex), float(vndf_factor),
+            float(min_roughness), r, _ptr(pos), _ptr(new_dir), _ptr(rad), _ptr(flags),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "shade_sample")
+    return pos, new_dir, rad, flags
+
+
+def shade_finish(origin, direction, throughput, tri, record, pos, new_dir, flags, p_light,
+                 vndf_factor: float, eps: float, min_roughness: float, chunk_tris: int):
+    """Launch K4 (contract: ``models.pathtracer.shade_finish_plain``): (o, d,
+    throughput) [R, 3] each, moved [R] bool and the sort hint [R] int32.
+    ``p_light`` [R], or None where the mixture is the cosine lobe alone (no
+    light rows, or no light).  The blend's second weight is ``1 -
+    vndf_factor`` in double, then rounded, as the twin's Python scalar."""
+    dev = direction.device
+    r = direction.shape[0]
+    for name, x in (("origin", origin), ("direction", direction), ("throughput", throughput),
+                    ("pos", pos), ("new_dir", new_dir)):
+        _check(x, name, torch.float32, (r, 3), dev)
+    _check(tri, "tri", torch.int32, (r,), dev)
+    _check(record, "record", torch.float32, (r, 16), dev)
+    _check(flags, "flags", torch.bool, (r, 2), dev)
+    if p_light is not None:
+        _check(p_light, "p_light", torch.float32, (r,), dev)
+    if chunk_tris <= 0:
+        raise ValueError(f"shade_finish: chunk_tris={chunk_tris}")
+    o = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    d = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    thr = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    moved = torch.empty((r,), dtype=torch.bool, device=dev)
+    hint = torch.empty((r,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library("shade_kernels").tpt_shade_finish(
+            _ptr(origin), _ptr(direction), _ptr(throughput), _ptr(tri), _ptr(record), _ptr(pos),
+            _ptr(new_dir), _ptr(flags), _ptr(p_light), float(vndf_factor),
+            1.0 - float(vndf_factor), float(eps), float(min_roughness), int(chunk_tris), r,
+            _ptr(o), _ptr(d), _ptr(thr), _ptr(moved), _ptr(hint),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "shade_finish")
+    return o, d, thr, moved, hint

@@ -3,7 +3,8 @@
 
 One sample of one pixel follows the reference estimator bounce for bounce
 (src/raytracer.h:512-627), with every branch of ``shade`` as masked selects
-over an R-lane wavefront.  Two engines, as in the JAX package: the
+over an R-lane wavefront (on the card: kernels K2, K3 and K4 around the
+light pdf, ``bounce_step``).  Two engines, as in the JAX package: the
 persistent one (``compaction=True``, the default) refills dead lanes with
 fresh (pixel, sample) primaries every iteration (path regeneration); the
 scan one (``compaction=False``) traces one sample of every lane through
@@ -158,7 +159,8 @@ def _fetched_slots(scene: TriangleScene, config: RenderConfig) -> tuple:
 def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) -> dict:
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain twin
     ``hit_info_plain`` for CPU tensors (same contract, the same bits).  On
-    the card the fields are views of the kernel's [R, 16] record."""
+    the card the fields are views of the kernel's [R, 16] record, which is
+    also returned under "record" (K3's and K4's input)."""
     if direction.is_cuda:
         from .. import kernels
 
@@ -170,7 +172,7 @@ def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) ->
         hit_info.launches += 1
         return dict(normal=rec[:, 0:3], shading_normal=rec[:, 3:6], inside=inside,
                     color=rec[:, 6:10], emission=rec[:, 10:13], metallic=rec[:, 13],
-                    roughness=rec[:, 14], ior=rec[:, 15])
+                    roughness=rec[:, 14], ior=rec[:, 15], record=rec)
     if direction.device.type == "cpu":
         return hit_info_plain(scene, direction, hit, config)
     raise RuntimeError(f"hit_info: no kernel for device {direction.device}")
@@ -242,15 +244,103 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     """One wavefront bounce: the masked-select form of ``shade``
     (src/raytracer.h:555-591).  Returns (o, d, throughput, radiance, alive,
     hint) where hint is the chunk id of the surface each moved ray now
-    spawns from (-1 elsewhere), the next bounce's sort key input."""
-    eps = config.eps
+    spawns from (-1 elsewhere), the next bounce's sort key input.
+
+    Five stages: the intersector, the hit record (K2, ``hit_info``), the
+    sampling chain up to the new direction (K3, ``shade_sample``), the
+    light pdf of that direction (``light_pdf``) and the pdf blend, BSDF and
+    throughput update (K4, ``shade_finish``).  On CUDA tensors K2, K3 and
+    K4 are one hand-written kernel each; on CPU tensors each runs its plain
+    twin."""
+    with stage("intersector"):
+        hit = scene_closest_hit(scene, o, d, config.eps, config.tuning)
+    with stage("hit_info"):
+        info = hit_info(scene, d, hit, config)
+    pos, new_dir, radiance, flags = shade_sample(scene, config, o, d, throughput, radiance,
+                                                 alive, draws, hit, info)
+    with stage("light_pdf"):
+        p_light = light_pdf(scene, pos, new_dir, config.eps)
+    o, d, throughput, moved, hint = shade_finish(scene, config, o, d, throughput, hit, info,
+                                                 pos, new_dir, flags, p_light)
+    return o, d, throughput, radiance, moved, hint
+
+
+def light_pdf(scene: TriangleScene, pos, new_dir, eps: float):
+    """[R] all-hits light-mixture pdf of the rays (pos, new_dir), or None for
+    a light set with no rows.  The same choice as the JAX package makes on
+    its chip, on every device: the cluster worklists (kernel B3) past 512
+    light slots, the flat contraction (K1) for up to 4 clusters, the dense
+    reduce otherwise."""
+    lights = scene.lights
+    if lights.capacity == 0:
+        return None
+    n_lights = lights.count
+    if lights.has_clusters and lights.capacity > 512:
+        r = pos.shape[0]
+        tile = RAY_TILE if r % RAY_TILE == 0 else 256
+        return light_pdf_sum_chunks(
+            pos, new_dir, lights.cluster_woop, lights.cluster_k, lights.cluster_min,
+            lights.cluster_max, n_lights, eps, ray_tile=tile,
+        )
+    if lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
+        return light_pdf_flat(pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps)
+    return light_pdf_sum(pos, new_dir, lights.verts, lights.normal, lights.area, n_lights, eps)
+
+
+def _env_tex(scene: TriangleScene, config: RenderConfig) -> int:
+    """The atlas id of the environment map a missed ray looks up, or -1
+    when it takes ``bg_color`` (no map loaded, or textures off)."""
+    return scene.env_tex if scene.has_env and config.use_textures else -1
+
+
+def shade_sample(scene: TriangleScene, config: RenderConfig, o, d, throughput, radiance,
+                 alive, draws, hit: Hit, info: dict):
+    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    ``shade_sample_plain`` for CPU tensors (same contract, the same bits).
+    ``info`` is ``hit_info``'s dict (the kernel reads K2's record from it).
+    Returns (pos, new_dir, radiance, flags): the hit points [R, 3], the
+    sampled directions [R, 3], the radiance with the miss and emission
+    terms added [R, 3], and flags [R, 2] bool (shade, passthrough)."""
+    if d.is_cuda:
+        from .. import kernels
+
+        out = kernels.shade_sample(*shade_sample_args(scene, config, o, d, throughput, radiance,
+                                                      alive, draws, hit, info))
+        shade_sample.launches += 1
+        return out
+    if d.device.type == "cpu":
+        return shade_sample_plain(scene, config, o, d, throughput, radiance, alive, draws,
+                                  hit, info)
+    raise RuntimeError(f"shade_sample: no kernel for device {d.device}")
+
+
+shade_sample.launches = 0
+
+
+def shade_sample_args(scene: TriangleScene, config: RenderConfig, o, d, throughput, radiance,
+                      alive, draws, hit: Hit, info: dict) -> tuple:
+    """``kernels.shade_sample``'s arguments for ``shade_sample``'s inputs:
+    the scene's light rows (or None), light count, background, atlas and
+    environment map id, and the config's VNDF share and roughness floor."""
+    lights = scene.lights
+    return (o.contiguous(), d.contiguous(), throughput.contiguous(), radiance.contiguous(),
+            alive.contiguous(), draws.contiguous(), hit.t.contiguous(), hit.hit.contiguous(),
+            info["record"], lights.verts.reshape(-1, 9) if lights.capacity > 0 else None,
+            lights.count, scene.bg_color, scene.atlas, _env_tex(scene, config),
+            config.vndf_factor, config.min_roughness)
+
+
+def shade_sample_plain(scene: TriangleScene, config: RenderConfig, o, d, throughput,
+                       radiance, alive, draws, hit: Hit, info: dict):
+    """The first half of ``shade`` after the hit record (the plain twin of
+    kernel K3): the environment or background radiance of missed rays, the
+    emission of shaded hits, the alpha Russian roulette, and the direction
+    drawn from the VNDF / cosine / light-triangle mixture."""
     vf = config.vndf_factor
     lights = scene.lights
-    with stage("intersector"):
-        hit = scene_closest_hit(scene, o, d, eps, config.tuning)
-
-    if scene.has_env and config.use_textures:
-        env = texture.env_radiance(scene.atlas, scene.env_tex, scene.bg_color, d)
+    env_tex = _env_tex(scene, config)
+    if env_tex >= 0:
+        env = texture.env_radiance(scene.atlas, env_tex, scene.bg_color, d)
     else:
         # No env map loaded: bg_at degenerates to bg_color.
         env = scene.bg_color
@@ -259,8 +349,6 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     radiance = radiance + torch.where(miss[:, None], throughput * env, zero3)
 
     live = alive & hit.hit
-    with stage("hit_info"):
-        info = hit_info(scene, d, hit, config)
     pos = o + hit.t[:, None] * d
 
     # Alpha Russian roulette (src/raytracer.h:558-561).
@@ -276,9 +364,8 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     cos_dir = sampling.cosine_sample(info["normal"], draws[5], draws[6])
     # A light set with no rows (never made by the loader, which pads to 8)
     # has nothing to pick or sum over: the mixture is the cosine lobe alone.
-    has_light_rows = lights.capacity > 0
-    n_lights = lights.count
-    if has_light_rows:
+    if lights.capacity > 0:
+        n_lights = lights.count
         pick_light = (sampling.pick_uniform(draws[4], 2) == 1) & (n_lights > 0)
         li = sampling.pick_uniform(draws[7], n_lights).long()
         lv = lights.verts.reshape(-1, 9)[li]  # [R, 9]
@@ -289,32 +376,57 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     else:
         mix_dir = cos_dir
     new_dir = where3(use_vndf, vndf_dir, mix_dir)
+    return pos, new_dir, radiance, torch.stack([shade, passthrough], dim=1)
 
-    # pdf blend (src/raytracer.h:572-574)
+
+def shade_finish(scene: TriangleScene, config: RenderConfig, o, d, throughput, hit: Hit,
+                 info: dict, pos, new_dir, flags, p_light):
+    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    ``shade_finish_plain`` for CPU tensors (same contract, the same bits).
+    ``p_light`` is the light pdf of (pos, new_dir), or None for a light set
+    with no rows.  Returns (o, d, throughput, moved, hint)."""
+    if d.is_cuda:
+        from .. import kernels
+
+        out = kernels.shade_finish(*shade_finish_args(scene, config, o, d, throughput, hit, info,
+                                                      pos, new_dir, flags, p_light))
+        shade_finish.launches += 1
+        return out
+    if d.device.type == "cpu":
+        return shade_finish_plain(scene, config, o, d, throughput, hit, info, pos, new_dir,
+                                  flags, p_light)
+    raise RuntimeError(f"shade_finish: no kernel for device {d.device}")
+
+
+shade_finish.launches = 0
+
+
+def shade_finish_args(scene: TriangleScene, config: RenderConfig, o, d, throughput, hit: Hit,
+                      info: dict, pos, new_dir, flags, p_light) -> tuple:
+    """``kernels.shade_finish``'s arguments for ``shade_finish``'s inputs:
+    the light pdf where the mixture uses it (else None), the config's VNDF
+    share, eps and roughness floor, and the scene's chunk width."""
+    use_light = p_light is not None and scene.lights.count > 0
+    return (o.contiguous(), d.contiguous(), throughput.contiguous(), hit.tri.contiguous(),
+            info["record"], pos.contiguous(), new_dir.contiguous(), flags.contiguous(),
+            p_light.contiguous() if use_light else None, config.vndf_factor, config.eps,
+            config.min_roughness, scene.chunk_woop.shape[-1])
+
+
+def shade_finish_plain(scene: TriangleScene, config: RenderConfig, o, d, throughput,
+                       hit: Hit, info: dict, pos, new_dir, flags, p_light):
+    """The second half of ``shade`` (the plain twin of kernel K4): the MIS
+    pdf blend (src/raytracer.h:572-574), the BSDF and cosine term, the kill
+    test, the throughput update and the next bounce's origin, direction
+    and sort hint."""
+    eps = config.eps
+    vf = config.vndf_factor
+    shade, passthrough = flags[:, 0], flags[:, 1]
+    a = torch.clamp_min(info["roughness"], config.min_roughness)
+    alpha_r2 = a * a
     p_vndf = sampling.vndf_pdf(alpha_r2, d, info["shading_normal"], new_dir, eps)
     p_cos = sampling.cosine_pdf(info["normal"], new_dir)
-    # The same choice as the JAX package makes on its chip, on every device:
-    # the cluster worklists (kernel B3) past 512 light slots, the flat
-    # contraction for up to 4 clusters, the dense reduce otherwise.
-    with stage("light_pdf"):
-        if not has_light_rows:
-            p_light = None
-        elif lights.has_clusters and lights.capacity > 512:
-            r = pos.shape[0]
-            tile = RAY_TILE if r % RAY_TILE == 0 else 256
-            p_light = light_pdf_sum_chunks(
-                pos, new_dir, lights.cluster_woop, lights.cluster_k, lights.cluster_min,
-                lights.cluster_max, n_lights, eps, ray_tile=tile,
-            )
-        elif lights.has_clusters and lights.cluster_woop.shape[0] <= 4:
-            p_light = light_pdf_flat(
-                pos, new_dir, lights.cluster_woop, lights.cluster_k, n_lights, eps
-            )
-        else:
-            p_light = light_pdf_sum(
-                pos, new_dir, lights.verts, lights.normal, lights.area, n_lights, eps
-            )
-    p_mix = (p_cos + p_light) / 2.0 if has_light_rows and n_lights > 0 else p_cos
+    p_mix = (p_cos + p_light) / 2.0 if p_light is not None and scene.lights.count > 0 else p_cos
     p = vf * p_vndf + (1.0 - vf) * p_mix
 
     f = bsdf.pbr_brdf(
@@ -333,7 +445,7 @@ def bounce_step(scene: TriangleScene, config: RenderConfig, o, d, throughput,
     chunk_tris = scene.chunk_woop.shape[-1]
     hint = torch.where(moved, torch.div(hit.tri, chunk_tris, rounding_mode="floor"),
                        torch.full_like(hit.tri, -1))
-    return o, d, throughput, radiance, moved, hint
+    return o, d, throughput, moved, hint
 
 
 def _make_sort_key(scene: TriangleScene, config: RenderConfig, r: int):
