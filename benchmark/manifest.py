@@ -3,6 +3,8 @@ the files it names.  Everything that belongs to one configuration, traffic
 mix, cell or per-layer metric sits in a file of its own, found by its name:
 
     benchmark/configs/<config>.json        the configuration (``file``)
+    benchmark/scenes/<module>.py           a configuration's own scene generators
+                                           (``scene.module``, ``env.module``)
     benchmark/traffic/<traffic>.json       the traffic mix's parameters
     benchmark/entries/<entry>.py           the entry a traffic file names
     benchmark/limits/<cell>.json           the limits of the cell's comparison

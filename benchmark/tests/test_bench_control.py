@@ -15,7 +15,8 @@ from benchmark import control, manifest
 
 @pytest.mark.parametrize("cell_name,samples", [("atrium.progressive", 2),
                                                ("envfield.sweep", 2),
-                                               ("atrium.rerender", 1)])
+                                               ("atrium.rerender", 1),
+                                               ("litbanner.progressive", 2)])
 def test_bench_control_fails_the_limit(cell_name, samples):
     cell = copy.deepcopy(manifest.cell(cell_name))
     t = cell["traffic"]
