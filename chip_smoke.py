@@ -424,12 +424,21 @@ def worklists(scene, o, d):
     return rays, cw, out
 
 
+def b2_kernel(*args):
+    """``kernels.items`` on B2's twin's arguments, with the unit prefix sum
+    its wrapper passes (``ci.item_unit_offsets``)."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    counts, masks, _, group, n_sub = args[5:]
+    return kernels.items(*args, ci.item_unit_offsets(counts, masks, group, n_sub))
+
+
 def phase_b2(scene, rays_sets):
     """B2 kernel vs its twin on real worklists: t and tri bit-equal to the
     twin (ties included) and across two runs.  Returns (max abs error,
     timing args, set mask bits of the timing worklist)."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
-    from tpu_pathtracer_torch import kernels
 
     worst = 0.0
     timing = units = None
@@ -440,8 +449,8 @@ def phase_b2(scene, rays_sets):
         i0 = torch.zeros((r,), dtype=torch.int32, device=DEV)
         for wl_name, (idx, counts, masks) in wls.items():
             args = (rays, t0, i0, cw, idx, counts, masks, EPS, ci.GROUP, 8)
-            tk, ik = kernels.items(*args)
-            tk2, ik2 = kernels.items(*args)
+            tk, ik = b2_kernel(*args)
+            tk2, ik2 = b2_kernel(*args)
             tp, ip = ci.run_items_plain(*args)
             torch.cuda.synchronize()
             bits = int(ci.item_unit_offsets(counts, masks, ci.GROUP, 8)[-1])
@@ -648,15 +657,15 @@ def phase_b6(scene, rays_sets):
             args = (rays, t0, i0, cw, idx, counts, masks, EPS, ci.GROUP, 8)
             tk, ik = kernels.slots(*args)
             tk2, ik2 = kernels.slots(*args)
-            tb, ib = kernels.items(*args)
+            tb, ib = b2_kernel(*args)
             tp, ip = ci.run_slots_plain(*args)
             torch.cuda.synchronize()
             same_b2 = bool(torch.equal(tk, tb) and torch.equal(ik, ib))
             det = bool(torch.equal(tk, tk2) and torch.equal(ik, ik2))
-            turns = [sync_ms(lambda: kernels.items(*args), 10),  # B2, B6, B6, B2
+            turns = [sync_ms(lambda: b2_kernel(*args), 10),  # B2, B6, B6, B2
                      sync_ms(lambda: kernels.slots(*args), 10),
                      sync_ms(lambda: kernels.slots(*args), 10),
-                     sync_ms(lambda: kernels.items(*args), 10)]
+                     sync_ms(lambda: b2_kernel(*args), 10)]
             worst = max(worst, compare_hits(
                 "b6", f"{name}/{wl_name}", tk, ik, tp, ip, items=int(counts.sum()),
                 slots=idx.shape[1], equal_to_b2=same_b2, deterministic=det,
@@ -2606,7 +2615,7 @@ def phase_tile256(scene, brutes, rays_sets):
             masks = torch.take_along_dim(packed, idx[:, :, None].long(), dim=1)
             args = (rays, t0, i0, cw, idx.contiguous(), counts.contiguous(), masks.contiguous(),
                     EPS, group, n_sub)
-            tk, ik = kernels.items(*args)
+            tk, ik = b2_kernel(*args)
             tp, ip = ci.run_items_plain(*args)
             torch.cuda.synchronize()
             equal = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
@@ -2814,10 +2823,10 @@ def main(only=()):
         emit("b1_timing", **{f"{k}_ms": v for k, v in b1_ms.items()},
              **{f"{k}_columns": args[1].shape[0] for k, args in b1_shapes.items()},
              empty_ms=queued_ms(one.zero_, 20))
-        turns = [sync_ms(lambda: kernels.items(*b2_args), 20),
+        turns = [sync_ms(lambda: b2_kernel(*b2_args), 20),
                  sync_ms(lambda: kernels.slots(*b6_args), 20),
                  sync_ms(lambda: kernels.slots(*b6_args), 20),
-                 sync_ms(lambda: kernels.items(*b2_args), 20)]
+                 sync_ms(lambda: b2_kernel(*b2_args), 20)]
         emit("b2_vs_b6", worklist="secondary residual", set_bits=b2_units, b2_ms=[turns[0], turns[3]],
              b6_ms=[turns[1], turns[2]])
         times = {

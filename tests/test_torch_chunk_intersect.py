@@ -245,9 +245,9 @@ def _kernel_units(offsets, counts, masks, group, n_sub, n_blocks):
 def _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, n_sub):
     """Plain-torch evaluation driven by the unit list, as the B2 kernel
     computes it: per unit, the first minimum of the sub-tile's rays over the
-    chunk, sent as the 64-bit key (t bits, test order) to a per-ray minimum;
-    then the key is decoded to the triangle and kept only where strictly
-    below tmin0."""
+    chunk, sent as the 64-bit key (t bits, triangle id) to a per-ray minimum
+    where not above tmin0; then the key is kept only where below the key of
+    (tmin0, tidx0)."""
     t_tiles, cap, _ = masks.shape
     r = rays.shape[0]
     ray_tile = r // t_tiles
@@ -262,17 +262,14 @@ def _items_from_units(rays, tmin0, tidx0, chunk_woop, idx, masks, units, group, 
         o, d = rays[ray_ids, 0:3][None], rays[ray_ids, 4:7][None]
         tmin, arg = ci._chunk_first_min(o, d, chunk_woop[chunk:chunk + 1], EPS)
         tmin, arg = tmin[0], arg[0]
-        key = (tmin.view(torch.int32).to(torch.int64) << 32) | ((s * group + g) * cw + arg)
-        sent = tmin < tmin0[ray_ids]
+        key = (tmin.view(torch.int32).to(torch.int64) << 32) | (chunk * cw + arg)
+        sent = (tmin <= tmin0[ray_ids]) & torch.isfinite(tmin)
         keys[ray_ids] = torch.where(sent, torch.minimum(keys[ray_ids], key), keys[ray_ids])
     found = keys != 2**63 - 1
     t_key = (keys >> 32).to(torch.int32).view(torch.float32)
-    low = keys & 0xFFFFFFFF
-    lane, sg = low % cw, low // cw
-    tile = torch.arange(r) // ray_tile
-    jg = idx[tile, torch.where(found, sg // group, 0)].long()
-    tri = ((jg * group + sg % group) * cw + lane).to(torch.int32)
-    won = found & (t_key < tmin0)
+    tri = (keys & 0xFFFFFFFF).to(torch.int32)
+    key0 = (tmin0.view(torch.int32).to(torch.int64) << 32) | tidx0.to(torch.int64)
+    won = found & (keys < key0)
     return torch.where(won, t_key, tmin0), torch.where(won, tri, tidx0)
 
 
@@ -282,7 +279,7 @@ def test_torch_item_units_cover_every_bit_and_match_twin(n_sub):
     of blocks, every set mask bit of a slot below the count is taken exactly
     once, in test order, and the evaluation driven by the units is bit-equal
     to ``run_items_plain`` (t and tri), from a partly finished (tmin0, tidx0)
-    so the strict comparison with it matters.  The cascade's real glue makes
+    so the comparison with it matters.  The cascade's real glue makes
     the worklist: 4 tiles of 128 rays over 2,000 triangles, one of them
     with no slot and one with 3, so the walk crosses dead slots and a dead
     tile."""

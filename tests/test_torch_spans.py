@@ -152,8 +152,8 @@ def test_torch_engine_call_counts_sum_to_iterations(tmp_path, eager):
     assert len(calls) == 2 * 2  # two chunks of 512 pixels, two passes each
     assert sum(c.counts["iterations"] for c in calls) == pt.persistent_accum.iterations - it0
     assert sum(c.counts["rays"] for c in calls) == stats["measured_rays"]
-    assert all(set(c.counts) == {"lanes", "iterations", "rays"} and c.counts["lanes"] == 512
-               for c in calls)
+    assert all(set(c.counts) == {"lanes", "ray_tile", "chunks", "iterations", "rays", "b2_units",
+                                 "b1_tests"} and c.counts["lanes"] == 512 for c in calls)
     passes = {p.id: p for p in _after(mark, "chunk_pass")}
     assert [passes[c.parent].counts for c in calls] == [
         {"start": a, "samples": b} for a, b in ((0, 2), (0, 1), (512, 2), (512, 1))]

@@ -63,14 +63,15 @@
 //   float4 per triangle: 3 shared loads per pair instead of 12) from a
 //   triangle-major copy of chunk_woop by one cp.async.bulk (TMA) into a
 //   two-stage ring completed on an mbarrier: the next unit's chunk is in
-//   flight while the current one is walked.  The result is order-fixed:
+//   flight while the current one is walked.  The result is order-free:
 //   each ray's chunk minimum goes to one 64-bit atomicMin on a key holding
 //   the float bits of t (t >= min_dst > 0 orders like the floats) above the
-//   test order (slot * group + g) * 128 + lane; the minimum key is the
-//   sequential walk's first minimum, ties included, whatever order the
-//   blocks run in, and a final pass decodes it to the triangle and keeps
-//   (tmin0, tidx0) unless strictly beaten.  So t and tri equal the plain
-//   twin bit for bit and from run to run.
+//   triangle id chunk * 128 + lane; the minimum key is the lexicographic
+//   minimum of (t, triangle id) over the tested triangles, whatever order
+//   the blocks run in and whatever order the worklists test them in, and a
+//   final pass keeps (tmin0, tidx0) unless the key is below theirs.  So t
+//   and tri equal the plain twin bit for bit and from run to run, and an
+//   exact tie goes to the same triangle at any ray tile, gate or pass split.
 //   No tensor cores: the Woop contraction is three terms deep and the
 //   port's contract is IEEE rounding op for op under --fmad=false (t to 1
 //   ulp of the twin); TF32 or bf16 products in wgmma would break it.  The
@@ -305,7 +306,7 @@ __global__ void __launch_bounds__(kItemThreads) items_kernel(
     const float4* w = ring + (size_t)(u % kStages) * cw * 3;
     const int g = it % group;
     const int ts = it / group;
-    const unsigned order0 = (unsigned)(((ts % cap) * group + g) * cw);
+    const unsigned tri0 = (unsigned)((idx[ts] * group + g) * cw);
     for (int r = threadIdx.x; r < rows; r += kItemThreads) {
       const size_t i = (size_t)(ts / cap) * ray_tile + (size_t)st * rows + r;
       const float* ray = rays + i * 8;
@@ -323,7 +324,9 @@ __global__ void __launch_bounds__(kItemThreads) items_kernel(
           arg = j;
         }
       }
-      if (best < tmin0[i]) atomicMin(keys + i, tpt::make_key(best, order0 + (unsigned)arg));
+      // A tie with tmin0 is settled on the triangle id by the final pass.
+      if (best <= tmin0[i] && best < INFINITY)
+        atomicMin(keys + i, tpt::make_key(best, tri0 + (unsigned)arg));
     }
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
@@ -331,12 +334,11 @@ __global__ void __launch_bounds__(kItemThreads) items_kernel(
 
 __global__ void items_final_kernel(
     const unsigned long long* __restrict__ keys, const float* __restrict__ tmin0,
-    const int32_t* __restrict__ tidx0, const int32_t* __restrict__ idx,
-    int n_rays, int ray_tile, int cap, int group, int cw,
+    const int32_t* __restrict__ tidx0, int n_rays,
     float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
-  tpt::decode_order_key(keys[i], i, tmin0, tidx0, idx, ray_tile, cap, group, cw, t_out, tri_out);
+  tpt::decode_tri_key(keys[i], i, tmin0, tidx0, t_out, tri_out);
 }
 
 }  // namespace
@@ -381,7 +383,7 @@ extern "C" int tpt_items(
     if (err != cudaSuccess) return (int)err;
   }
   items_final_kernel<<<(n_rays + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, st>>>(
-      (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0,
-      (const int32_t*)idx, n_rays, ray_tile, cap, group, cw, (float*)t_out, (int32_t*)tri_out);
+      (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0, n_rays,
+      (float*)t_out, (int32_t*)tri_out);
   return (int)cudaGetLastError();
 }

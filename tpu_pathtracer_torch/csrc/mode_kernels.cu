@@ -35,8 +35,10 @@
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:761 (_kernel_pass, via
 //   run_pass :1034).
 //   For tile i and slot s < counts[i], group idx[i, s]: each of its chunks is
-//   tested on the 64-ray sub-tiles whose bit is set in the slot's mask byte,
-//   accumulated in slot order with a strict < over (tmin0, tidx0).  The same
+//   tested on the 64-ray sub-tiles whose bit is set in the slot's mask byte;
+//   the result is the lexicographic minimum of (t, triangle id) over the
+//   tested triangles and (tmin0, tidx0), as B2's (keys with the triangle id
+//   in the low word).  The same
 //   function as B2 (items_kernel); what is particular to the slot grid is
 //   that a slot's group of chunks is one contiguous block of Woop rows (48 KB
 //   at 8 chunks of 128 triangles), which the Pallas index map fetched in one
@@ -213,10 +215,12 @@ __global__ void dense_final_kernel(
 
 // One part of a unit of B6: the rays of a sub-tile (``rows`` from ray
 // ``ray0``), 32 at a time, against triangles j0 .. j1-1 of the chunk staged
-// at ``w``; each ray's first minimum goes to its key when it beats tmin0.
+// at ``w``, whose first triangle id is ``tri0``; each ray's first minimum
+// goes to its key when it is not above tmin0 (the final pass settles a tie
+// on the triangle id).
 __device__ __forceinline__ void slot_part(
     const float4* __restrict__ w, const float* __restrict__ rays,
-    const float* __restrict__ tmin0, size_t ray0, int rows, int j0, int j1, unsigned order0,
+    const float* __restrict__ tmin0, size_t ray0, int rows, int j0, int j1, unsigned tri0,
     float min_dst, int lane, unsigned long long* __restrict__ keys) {
   for (int r = lane; r < rows; r += 32) {
     const size_t i = ray0 + r;
@@ -235,7 +239,8 @@ __device__ __forceinline__ void slot_part(
         arg = j;
       }
     }
-    if (best < tmin0[i]) atomicMin(keys + i, tpt::make_key(best, order0 + (unsigned)arg));
+    if (best <= tmin0[i] && best < INFINITY)
+      atomicMin(keys + i, tpt::make_key(best, tri0 + (unsigned)arg));
   }
 }
 
@@ -335,7 +340,6 @@ __global__ void __launch_bounds__((kSlotWarps + 1) * 32) slots_kernel(
     const int4 rec = record[stage];
     const int slot = rec.x;
     const int tile = slot / cap;
-    const int s = slot % cap;
     const int32_t* words = masks + (size_t)slot * n_words;
     int u = rec.y;  // the number of the slot's first unit
     for (int g = 0; g < group; ++g) {
@@ -347,7 +351,7 @@ __global__ void __launch_bounds__((kSlotWarps + 1) * 32) slots_kernel(
           if (((u - lo) * kSlotParts + h) % kSlotWarps != warp) continue;
           slot_part(ring + stage * stage_f4 + g * chunk_f4, rays, tmin0,
                     (size_t)tile * ray_tile + (size_t)st * rows, rows, h * part, (h + 1) * part,
-                    (unsigned)((s * group + g) * cw), min_dst, lane, keys);
+                    (unsigned)((idx[slot] * group + g) * cw), min_dst, lane, keys);
         }
       }
     }
@@ -359,12 +363,11 @@ __global__ void __launch_bounds__((kSlotWarps + 1) * 32) slots_kernel(
 
 __global__ void slots_final_kernel(
     const unsigned long long* __restrict__ keys, const float* __restrict__ tmin0,
-    const int32_t* __restrict__ tidx0, const int32_t* __restrict__ idx,
-    int n_rays, int ray_tile, int cap, int group, int cw,
+    const int32_t* __restrict__ tidx0, int n_rays,
     float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
-  tpt::decode_order_key(keys[i], i, tmin0, tidx0, idx, ray_tile, cap, group, cw, t_out, tri_out);
+  tpt::decode_tri_key(keys[i], i, tmin0, tidx0, t_out, tri_out);
 }
 
 __global__ void ray_group_kernel(
@@ -455,9 +458,8 @@ extern "C" int tpt_slots(
     if (err != cudaSuccess) return (int)err;
   }
   slots_final_kernel<<<(n_rays + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, st>>>(
-      (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0,
-      (const int32_t*)idx, n_rays, ray_tile, cap, group, cw, (float*)t_out,
-      (int32_t*)tri_out);
+      (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0, n_rays,
+      (float*)t_out, (int32_t*)tri_out);
   return (int)cudaGetLastError();
 }
 

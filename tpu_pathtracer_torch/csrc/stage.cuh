@@ -111,20 +111,14 @@ __device__ __forceinline__ float key_time(unsigned long long key) {
   return __uint_as_float((unsigned int)(key >> 32));
 }
 
-// The final pass of B2 and B6 for ray i: decode its minimum key's test-order
-// index (slot * group + g) * cw + lane to the triangle (idx[tile, slot] *
-// group + g) * cw + lane, and keep (tmin0, tidx0) unless strictly beaten.
-__device__ __forceinline__ void decode_order_key(
+// The final pass of B2 and B6 for ray i: the lexicographic minimum of (t,
+// triangle id) between its minimum key and (tmin0, tidx0).
+__device__ __forceinline__ void decode_tri_key(
     unsigned long long key, int i, const float* __restrict__ tmin0,
-    const int32_t* __restrict__ tidx0, const int32_t* __restrict__ idx, int ray_tile, int cap,
-    int group, int cw, float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
-  if (key != kNoKey && key_time(key) < tmin0[i]) {
-    const unsigned int ord = (unsigned int)(key & 0xFFFFFFFFu);
-    const unsigned int lane = ord % cw;
-    const unsigned int sg = ord / cw;  // slot * group + g
-    const int jg = idx[(size_t)(i / ray_tile) * cap + sg / group];
+    const int32_t* __restrict__ tidx0, float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
+  if (key != kNoKey && key < make_key(tmin0[i], (unsigned int)tidx0[i])) {
     t_out[i] = key_time(key);
-    tri_out[i] = (int32_t)((jg * group + sg % group) * cw + lane);
+    tri_out[i] = (int32_t)(key & 0xFFFFFFFFu);
   } else {
     t_out[i] = tmin0[i];
     tri_out[i] = tidx0[i];

@@ -221,12 +221,11 @@ def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, wan
     return m8, ent, sub
 
 
-def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
+def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub, offsets):
     """Launch B2 (contract: ``ops.chunk_intersect.run_items_plain``).  The
     kernel reads the triangle-major copy of ``chunk_woop`` ([Cpad, cw, 12],
-    ``triangle_major``) and the unit prefix sum of ``item_unit_offsets``."""
-    from .ops.chunk_intersect import item_unit_offsets
-
+    ``triangle_major``) and ``offsets``, the unit prefix sum of
+    ``ops.chunk_intersect.item_unit_offsets``."""
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
@@ -238,7 +237,7 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
         raise ValueError(
             f"items: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words} cw={cw}"
         )
-    _check_key_bound(min_dst, cap * group * cw, "items")
+    _check_key_bound(min_dst, cpad * cw, "items")
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(tmin0, "tmin0", torch.float32, (r,), dev)
     _check(tidx0, "tidx0", torch.int32, (r,), dev)
@@ -247,7 +246,7 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
     _check(masks, "masks", torch.int32, (t_tiles, cap, n_words), dev)
     woop_t = triangle_major(chunk_woop)
-    offsets = item_unit_offsets(counts, masks, group, n_sub)
+    _check(offsets, "offsets", torch.int32, (t_tiles * cap * group,), dev)
     keys = torch.empty((r,), dtype=torch.int64, device=dev)
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
@@ -319,7 +318,7 @@ def nearest(rays, box_min, box_max, min_dst):
 def _check_key_bound(min_dst, n_keys, name):
     """B2, B5 and B6 order candidates by 64-bit keys whose high word is the bits
     of t: that orders like the floats only for t > 0 (t >= min_dst), and
-    the low word must hold every triangle id or test-order index."""
+    the low word must hold every triangle id."""
     if not min_dst > 0 or n_keys >= 2**31:
         raise ValueError(f"{name}: needs min_dst > 0 and < 2^31 keys (min_dst={min_dst}, keys={n_keys})")
 
@@ -374,7 +373,7 @@ def slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
         raise ValueError(
             f"slots: R={r} T={t_tiles} n_sub={n_sub} chunks={cpad} group={group} W={n_words} cw={cw}"
         )
-    _check_key_bound(min_dst, cap * group * cw, "slots")
+    _check_key_bound(min_dst, cpad * cw, "slots")
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(tmin0, "tmin0", torch.float32, (r,), dev)
     _check(tidx0, "tidx0", torch.int32, (r,), dev)

@@ -41,6 +41,7 @@ from ..ops.chunk_intersect import (
     RAY_TILE,
     check_tuning,
     closest_hit_chunks,
+    count_work,
     group_boxes,
     light_pdf_sum_chunks,
     ray_sort_key,
@@ -123,17 +124,25 @@ def gen_rays(camera: Camera, pixel_ids: torch.Tensor, offsets: torch.Tensor):
     return o, d
 
 
+def intersect_tile(scene: TriangleScene, tuning: IntersectTuning) -> int:
+    """Rays per tile of the chunk cascade on ``scene``: 256 past
+    ``tuning.narrow_tile_chunks`` chunks, ``RAY_TILE`` up to it, 0 for a
+    scene of at most 1,024 triangles (the dense sweep, no tiles)."""
+    if scene.capacity <= 1024:
+        return 0
+    return 256 if scene.chunk_woop.shape[0] > tuning.resolve().narrow_tile_chunks else RAY_TILE
+
+
 def scene_closest_hit(scene: TriangleScene, origin, direction, min_dst: float,
                       tuning: IntersectTuning) -> Hit:
     """Dense sweep for scenes of at most 1,024 triangles, the chunk cascade
-    (kernels B1/B2 on CUDA) above that."""
-    if scene.capacity <= 1024:
+    (kernels B1/B2 on CUDA) above that, in tiles of ``intersect_tile``."""
+    tile = intersect_tile(scene, tuning)
+    if not tile:
         return closest_hit(origin, direction, scene.woop, min_dst)
-    tuning = tuning.resolve()
-    tile = 256 if scene.chunk_woop.shape[0] > tuning.narrow_tile_chunks else RAY_TILE
     return closest_hit_chunks(
         origin, direction, scene.chunk_woop, scene.chunk_aabb_min,
-        scene.chunk_aabb_max, scene.woop_rows, min_dst, ray_tile=tile, tuning=tuning,
+        scene.chunk_aabb_max, scene.woop_rows, min_dst, ray_tile=tile, tuning=tuning.resolve(),
     )
 
 
@@ -508,6 +517,8 @@ def add_rows(accum: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> t
 LOOP_ITERATIONS = 4
 # Compiled loops kept at once (each holds its scene's tensors and its pool).
 GRAPH_CACHE = 4
+# The entries of the persistent loop's work carry (``ops.chunk_intersect.count_work``).
+WORK_COUNTS = ("b2_units", "b1_tests")
 
 
 def engine_loop(config: RenderConfig, device, eager: bool = False) -> str:
@@ -588,6 +599,7 @@ class _PersistentLoop:
             hint=torch.full((self.n_rays,), -1, dtype=torch.int32, device=dev),
             next_work=torch.minimum(self.w_total, torch.full_like(self.w_total, self.n_rays)),
             n_bounce=torch.zeros((), dtype=torch.int64, device=dev),
+            work=torch.zeros((len(WORK_COUNTS),), dtype=torch.int64, device=dev),
         )
 
     def more(self, c: dict) -> torch.Tensor:
@@ -613,7 +625,7 @@ class _PersistentLoop:
             with stage("draws"):
                 draws = bounce_draws(self.seed, sample, depth, slot, config,
                                      self.sample_start, self.chunk_start)
-            with stage("shading"):
+            with stage("shading"), count_work(c["work"]):
                 o, d, throughput, radiance, alive2, hint = bounce_step(
                     scene, config, o, d, throughput, radiance, alive, draws
                 )
@@ -654,7 +666,7 @@ class _PersistentLoop:
                     o = where3(alive, o, self.far)
         return dict(o=o, d=d, throughput=throughput, radiance=radiance, alive=alive,
                     active=active, slot=slot, sample=sample, depth=depth, hint=hint,
-                    next_work=next_work, n_bounce=n_bounce)
+                    next_work=next_work, n_bounce=n_bounce, work=c["work"])
 
 
 _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
@@ -784,19 +796,27 @@ def persistent_accum(
     adds 0 and ``next_work`` stays at ``w_total``.
     ``persistent_accum.iterations`` counts the iterations run.
 
+    The loop also counts, on the device, the intersector's work of every
+    bounce into its ``work`` carry (``WORK_COUNTS``; ``count_work``): B2's
+    units and B1's (tile, chunk) tests, over every launch the loop makes,
+    those past the end included.  ``persistent_accum.work`` holds the
+    newest call's ([2] int64 on the device, unread).
+
     The call is an ``engine_call`` span of the log with ``lanes``,
-    ``iterations`` and, on CUDA's graph loop, ``graph`` (its stage map's
-    id); the caller attaches ``rays`` where it reads the count
-    (``utils.profiling.last``).  Inside it: ``call_start`` (the buffers,
-    the inputs' load and the first carries) and ``drain`` (the iterations
-    with their host reads, and the capture at a body's first call)."""
+    ``ray_tile`` (``intersect_tile``), ``chunks``, ``iterations`` and, on
+    CUDA's graph loop, ``graph`` (its stage map's id); the caller attaches
+    ``rays``, ``b2_units`` and ``b1_tests`` where it reads them
+    (``attach_call_counts``).  Inside it: ``call_start`` (the buffers, the
+    inputs' load and the first carries) and ``drain`` (the iterations with
+    their host reads, and the capture at a body's first call)."""
     dev = scene.device
     pool_pix = n_rays if pix_count is None else pix_count
     rows = n_rays if accum_rows is None else accum_rows
     kind = engine_loop(config, dev, eager)
     k = LOOP_ITERATIONS
     it0 = persistent_accum.iterations
-    with span("engine_call", lanes=n_rays) as call:
+    with span("engine_call", lanes=n_rays, ray_tile=intersect_tile(scene, config.tuning),
+              chunks=scene.chunk_woop.shape[0]) as call:
         if kind == "eager":
             with span("call_start"):
                 scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
@@ -807,6 +827,7 @@ def persistent_accum(
                     c = body.iteration(c)
                     persistent_accum.iterations += 1
             call.add(iterations=persistent_accum.iterations - it0)
+            persistent_accum.work = c["work"]
             return body.accum[:rows], c["n_bounce"]
 
         with span("call_start"):
@@ -828,10 +849,22 @@ def persistent_accum(
         if block.graph_id is not None:
             call.add(graph=block.graph_id)
         # Copies: the next call of this loop overwrites its buffers.
+        persistent_accum.work = block.carries["work"].clone()
         return body.accum[:rows].clone(), block.carries["n_bounce"].clone()
 
 
 persistent_accum.iterations = 0
+persistent_accum.work = None
+
+
+def attach_call_counts(n_bounce: torch.Tensor) -> int:
+    """Read the newest engine call's rays (its ``n_bounce``) and work
+    (``persistent_accum.work``) in one host read, attach them to its
+    ``engine_call`` span as ``rays``, ``b2_units`` and ``b1_tests``, and
+    return the rays."""
+    rays, *work = torch.cat([n_bounce.reshape(1), persistent_accum.work]).tolist()
+    last("engine_call").add(rays=rays, **dict(zip(WORK_COUNTS, work)))
+    return rays
 
 
 def render_chunk_persistent(scene, chunk_start, seed, sample_start, n_rays: int, spp: int,
@@ -1037,8 +1070,9 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     (``persistent_accum``, ``scan_accum``); ``eager=True`` runs the eager
     loop instead.  Each (chunk, pass) is a ``chunk_pass`` span of the log
     (``start``, its first pixel, and ``samples``) around its engine call,
-    whose ``rays`` it attaches at its read of them, and each chunk's copy
-    to the host a ``readback`` span."""
+    whose ``rays`` and work counts it attaches at its read of them
+    (``attach_call_counts``), and each chunk's copy to the host a
+    ``readback`` span."""
     config = config or RenderConfig()
     check_config(config)
     phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
@@ -1078,9 +1112,7 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                         scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar,
                         eager=eager,
                     )
-                    call_rays = int(nb)
-                    last("engine_call").add(rays=call_rays)
-                    rays += call_rays
+                    rays += attach_call_counts(nb)
                 contrib = rad * float(todo)
                 acc = contrib if acc is None else acc + contrib
         with phase("device_wait_readback"), span("readback"):

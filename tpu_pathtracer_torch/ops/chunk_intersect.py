@@ -19,9 +19,14 @@ intersector mode ``tuning.mode`` (``TPU_PT_INTERSECT``).  The default,
              prune) — kernel B2 for the pair tests, B1 for the rechecks;
   residual   one final pass over everything still active and untested.
 
-Every pass min-accumulates (t, triangle) with a strict ``<`` from the
+Every pass min-accumulates (t, triangle id) lexicographically from the
 previous pass's result, so retests are idempotent and the result is exactly
-the closest hit over the union of tested chunks.  ``cheap_recheck``
+the closest hit over the union of tested chunks, an exact tie going to the
+smallest triangle id whatever order the chunks were tested in; with the
+chunk boxes grown by ``BOX_SLACK`` that union holds every ray's closest
+hit, so the ray tile, the gates and the pass split never change the result
+(the JAX package keeps the first tie in test order and tests the boxes as
+they are).  ``cheap_recheck``
 (``TPU_PT_CHEAP_RECHECK``) 1 replaces every recheck, and 2 every recheck
 but the last, by a comparison of the initial pass's sub-tile entry minima
 with each sub-tile's largest best t (plain tensor code, looser, exact all
@@ -60,6 +65,7 @@ tile's whole worklist.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -69,6 +75,7 @@ from ..config import IntersectTuning
 from ..kernels import made_once
 from ..utils.profiling import stage
 from .intersect import Hit, winner_barycentrics
+from .vecmath import constant
 
 RAY_TILE = 512  # rays per tile
 CHUNK_TRIS = 128  # triangles per chunk
@@ -96,6 +103,21 @@ def _nan_pad(x: torch.Tensor, rows: int) -> torch.Tensor:
 # NaN-padded copies of a scene's chunk tensors, keyed on the identity of the
 # source tensor and the padded row count.
 _PADDED: dict = {}
+# Grown copies of a scene's chunk boxes, keyed on the identity of the source
+# tensor and the side.
+_GROWN: dict = {}
+# The cascade grows every chunk box by this share of the scene's largest
+# coordinate before any slab test, so that a ray's own rounded slab test
+# reaches the chunk of every triangle its Woop test hits (a hit on a box's
+# face: the walls and floors that bound a chunk's box); the closest hit
+# then never rests on another ray of its tile activating the chunk, and the
+# ray tile, the gates and the pass split cannot change it.  Of 131,072 rays
+# aimed at the 2,606-triangle atrium's surfaces or spawned on them, 409
+# miss the chunk of their hit without slack and none from 2^-23 on, 8 times
+# less than this.  Small against ``min_dst`` (1e-4) at the scenes' scale,
+# so a flat box still rejects the rays spawned on it, but for those within
+# ~0.1 of its plane.
+BOX_SLACK = 2.0**-20
 
 
 def _nan_pad_once(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -106,6 +128,18 @@ def _nan_pad_once(x: torch.Tensor, rows: int) -> torch.Tensor:
     if rows <= x.shape[0]:
         return x.contiguous()
     return made_once(_PADDED, (id(x), rows), x, lambda: _nan_pad(x, rows).contiguous())
+
+
+def _grown_once(x: torch.Tensor, side: float) -> torch.Tensor:
+    """``x`` ([C, 3] box corners) moved by ``side`` x ``BOX_SLACK`` x its
+    largest finite magnitude (NaN rows stay NaN), made once per source
+    tensor (``kernels.made_once``) with no host read."""
+
+    def make():
+        scale = torch.nan_to_num(x.abs(), nan=0.0, posinf=0.0).amax()
+        return (x + side * BOX_SLACK * scale).contiguous()
+
+    return made_once(_GROWN, (id(x), side), x, make)
 
 
 def _wrap_i32(words: torch.Tensor) -> torch.Tensor:
@@ -225,7 +259,15 @@ def tile_chunk_activity(
     want_sub: bool = False,
 ):
     """B1 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors (see ``tile_chunk_activity_plain`` for the contract)."""
+    tensors (see ``tile_chunk_activity_plain`` for the contract).  Under
+    ``count_work`` it notes the (tile, chunk) slab tests its gate lets
+    through."""
+    seen = _WORK[0]
+    if seen is not None:
+        if coarse_bits is None:
+            seen["ungated"] += rays.shape[0] // ray_tile * cmin.shape[0]
+        else:
+            seen["gates"].setdefault((cmin.shape[0], coarse_bits.shape), []).append(coarse_bits)
     if rays.is_cuda:
         from .. import kernels
 
@@ -243,6 +285,44 @@ def tile_chunk_activity(
 
 
 tile_chunk_activity.launches = 0
+
+
+def _gated_tests(words: torch.Tensor, columns: int) -> torch.Tensor:
+    """B1's tests under coarse gates ``words`` ([..., W] int32) over
+    ``columns`` chunks: [] int64, the (tile, chunk) pairs of the
+    ``ACT_COLS``-chunk blocks whose bit is set."""
+    n_words = words.shape[-1]
+    cols = [min(ACT_COLS, max(columns - ACT_COLS * b, 0)) for b in range(32 * n_words)]
+    shifts = constant(list(range(32)), words)
+    weight = constant(cols, words, torch.int64).reshape(n_words, 32)
+    return (((words[..., None] >> shifts) & 1) * weight).sum()
+
+
+# What the launches inside ``count_work`` were given, else None.
+_WORK: list = [None]
+
+
+@contextlib.contextmanager
+def count_work(work: torch.Tensor):
+    """Add the enclosed cascades' work to ``work`` ([2] int64 on the device)
+    in place, with no host read: B2's units (64 rays x 128 triangles each)
+    at 0 and B1's gated (tile, chunk) slab tests at 1, over every launch of
+    either, taken from the worklists and gates the tensor code builds, so
+    the kernels and their twins count the same.  A launch only notes its
+    unit total or its gate; the sums are taken once, at the end, in ten
+    device operations however many launches there were."""
+    outer, _WORK[0] = _WORK[0], dict(units=[], gates={}, ungated=0)
+    try:
+        yield
+        seen = _WORK[0]
+        if seen["units"]:
+            work[:1].add_(torch.cat(seen["units"]).sum())
+        for (columns, _), words in seen["gates"].items():
+            work[1:].add_(_gated_tests(torch.stack(words), columns))
+        if seen["ungated"]:
+            work[1:].add_(seen["ungated"])
+    finally:
+        _WORK[0] = outer
 
 
 # --------------------------------------------------------------------------
@@ -293,8 +373,10 @@ def run_items_plain(
     """Plain twin of the B2 kernel: for every tile, every valid slot s in
     order, every chunk g of group idx[tile, s] and every sub-tile whose mask
     bit is set, the Woop test of the sub-tile's rays against the chunk's
-    triangles; per ray the first minimum t over the chunk, taken when
-    strictly below the ray's current best.  Returns (t [R], tri [R])."""
+    triangles; per ray the first minimum t over the chunk, taken when its
+    (t, triangle id) is below the ray's current best (a tie in t goes to the
+    smaller triangle id, so the order of the slots does not matter).
+    Returns (t [R], tri [R])."""
     t_tiles, cap = idx.shape
     r = rays.shape[0]
     rt = r // t_tiles
@@ -313,9 +395,11 @@ def run_items_plain(
             ray_on = live[:, None] & (((mask[:, None] >> sub_of_ray[None, :]) & 1) > 0)
             chunk = chunks0 + g
             cmin_t, carg = _chunk_first_min(o, d, chunk_woop[chunk], min_dst)
-            better = ray_on & (cmin_t < t)
+            tri_c = (chunk[:, None] * cw + carg).to(torch.int32)
+            tie = (cmin_t == t) & torch.isfinite(cmin_t) & (tri_c < tri)
+            better = ray_on & ((cmin_t < t) | tie)
             t = torch.where(better, cmin_t, t)
-            tri = torch.where(better, (chunk[:, None] * cw + carg).to(torch.int32), tri)
+            tri = torch.where(better, tri_c, tri)
     return t.reshape(r), tri.reshape(r)
 
 
@@ -360,21 +444,30 @@ def slot_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_s
 
 def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
     """B2 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors (see ``run_items_plain`` for the contract)."""
+    tensors (see ``run_items_plain`` for the contract).  Under
+    ``count_work`` it notes its units, the last entry of
+    ``item_unit_offsets`` (the kernel's own unit list)."""
+    seen = _WORK[0]
     if rays.is_cuda:
         from .. import kernels
 
         with stage("kernels"):
+            offsets = item_unit_offsets(counts, masks, group, n_sub)
             out = kernels.items(
-                rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
+                rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub, offsets
             )
         run_items.launches += 1
-        return out
-    if rays.device.type == "cpu":
-        return run_items_plain(
+    elif rays.device.type == "cpu":
+        out = run_items_plain(
             rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
         )
-    raise RuntimeError(f"run_items: no kernel for device {rays.device}")
+        if seen is not None:
+            offsets = item_unit_offsets(counts, masks, group, n_sub)
+    else:
+        raise RuntimeError(f"run_items: no kernel for device {rays.device}")
+    if seen is not None:
+        seen["units"].append(offsets[-1:])
+    return out
 
 
 run_items.launches = 0
@@ -440,7 +533,7 @@ run_dense.launches = 0
 
 
 # Plain twin of the B6 kernel.  The slot grid computes the function B2
-# computes (tile i, slots s < counts[i] in slot order, strict <), so its twin
+# computes (tile i, slots s < counts[i], the least (t, triangle id)), so its twin
 # is B2's; the kernels differ in how the card runs it (a slot's whole group
 # staged once for a block's warps against one chunk staged per unit).
 run_slots_plain = run_items_plain
@@ -710,10 +803,11 @@ def closest_hit_chunks(
 ) -> Hit:
     """Closest hit through the intersector mode ``tuning.mode`` (see the
     module doc).  Equal to a brute force over every triangle in the same
-    arithmetic up to exact-t ties, except where a ray's own rounded slab
-    test cannot reach the chunk of a hit (a hit on a chunk's AABB face, or a
-    few 1e-4 from a surface-spawned origin), which the JAX package's modes
-    share."""
+    arithmetic, an exact-t tie to the smallest triangle id, whatever the
+    ray tile and the tuning: the chunk boxes are grown by ``BOX_SLACK``
+    first, so a ray's own slab test reaches the chunk of each of its hits
+    (the JAX package's modes test the boxes as they are, and may miss a hit
+    on a box's face that no other ray of the tile activates)."""
     tuning = (tuning or IntersectTuning()).resolve()
     check_tuning(tuning)
     mode = tuning.mode
@@ -727,8 +821,8 @@ def closest_hit_chunks(
     c = chunk_woop.shape[0]
     cg = -(-c // group)
     chunk_woop = _nan_pad_once(chunk_woop, cg * group)
-    chunk_min = _nan_pad_once(chunk_min, cg * group)
-    chunk_max = _nan_pad_once(chunk_max, cg * group)
+    chunk_min = _grown_once(_nan_pad_once(chunk_min, cg * group), -1.0)
+    chunk_max = _grown_once(_nan_pad_once(chunk_max, cg * group), 1.0)
     rays = pack_rays(origin, direction)
     if mode == "bins":  # no tile activity prepass
         t_best, tri = _closest_hit_bins(

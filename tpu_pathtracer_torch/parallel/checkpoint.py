@@ -26,6 +26,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.pathtracer import (
+    attach_call_counts,
     check_config,
     engine_loop,
     pick_chunk,
@@ -34,7 +35,7 @@ from ..models.pathtracer import (
 )
 from ..scene.accel import LEAF_SIZE, build_leaves, leaf_woop
 from ..scene.types import TriangleScene
-from ..utils.profiling import last, span
+from ..utils.profiling import span
 
 # Config fields that change HOW the render executes but not WHAT estimator
 # it computes (the same samples, up to fp summation order).  They are left
@@ -216,7 +217,8 @@ def render_with_checkpoints(
     Each pass is a ``pass`` span of the log, holding a ``chunk_pass`` span
     a chunk (``start``, its first pixel, and ``samples``, as in ``render``:
     its engine call and its ``readback``, the copy to the host and the
-    accumulate, where the call's ``rays`` are read) and the ``save``;
+    accumulate, where the call's ``rays`` and work counts are read:
+    ``attach_call_counts``) and the ``save``;
     ``progress`` is called after it."""
     config = config or RenderConfig()
     check_config(config)
@@ -263,9 +265,7 @@ def render_with_checkpoints(
                         # The engines return the mean over ``todo``; accumulate the sum.
                         state.accum[start:start + n] += host * todo
                         if nb is not None:
-                            call_rays = int(nb)
-                            last("engine_call").add(rays=call_rays)
-                            measured += call_rays
+                            measured += attach_call_counts(nb)
             state.samples_done += todo
             if checkpoint_path:
                 state.save(checkpoint_path)

@@ -530,8 +530,14 @@ def make_atrium_gltf(
     * every surface textured (baseColor tiles + MR + normal maps) when
       ``textured``.
 
-    ``detail`` scales tessellation: detail=1 ~ 60k tris, detail=2 (default)
-    ~ 230k, detail=3 ~ 520k.  Deterministic for a given (detail, seed).
+    ``detail`` scales tessellation; at seed 0, loaded by
+    ``scene/gltf.parse_gltf_scene`` into chunks of 128 (and 512-chunk
+    coarse-gate blocks): detail=0 2,606 triangles (24 chunks), 1 56,542
+    (448), 2 (default) 217,790 (1,704; 4 blocks), 3 460,190 (3,600; 8), 4
+    797,822 (6,240; 13), 5 1,231,198 (9,624; 19).  Details 4 and 5 pass
+    ``narrow_tile_chunks`` (4,096: 256-ray tiles), detail 5 also
+    ``super_tbound_min`` (16 blocks: the t-bounded coarse gate at every
+    recheck).  Deterministic for a given (detail, seed).
     """
     rng = np.random.default_rng(seed)
     b = GltfBuilder()
