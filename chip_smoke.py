@@ -91,6 +91,13 @@ the card) against the per-iteration eager loop:
                    ``torch.profiler``, the same identity at 4 spp under
                    "twopass", on the lit-banner atrium and on the env field,
                    and two ``Renderer`` frames through the cached graph;
+  worklist         K5, a cascade pass's worklist, against its twin (the
+                   cascade's torch chain) bit for bit: every pass of the
+                   cascade on the atrium's rays at 512- and 256-ray tiles,
+                   and random passes at ``bigatrium``'s 256 tiles x 1,203
+                   groups and at 4,500 groups (keys past shared memory);
+                   timed beside the twin at the atrium's first near pass and
+                   residual;
   tile256          the atrium with ``TPU_PT_NARROW_TILE_CHUNKS`` lowered
                    below its chunk count: B1 and B2 at 256-ray tiles against
                    their twins, the cascade against the brute force, and a
@@ -115,7 +122,7 @@ plain torch):
 
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero without the final line.  ``python3 chip_smoke.py shading
-shade_chain engine homebrew sharded headline`` (any of them) runs only
+shade_chain worklist engine homebrew sharded headline`` (any of them) runs only
 those phases after the build;
 ``python3 chip_smoke.py headline_full`` runs the JAX package's headline
 workload (the atrium at 1000x1000 @ 1000 spp in checkpoints of 50) and
@@ -275,7 +282,7 @@ def counters():
             "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
             "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key,
             "k1": intersect.light_pdf_flat, "k2": pt.hit_info, "k3": pt.shade_sample,
-            "k4": pt.shade_finish}
+            "k4": pt.shade_finish, "k5": ci.worklist_pass}
 
 
 def reset_launches():
@@ -2571,6 +2578,100 @@ def phase_graph(path, lit_path, field, env):
     return {"eager_ms": eager_ms, "graph_ms": graph_ms, "best_k": best_k}
 
 
+def cascade_worklists(scene, o, d, ray_tile):
+    """Every ``worklist_pass`` call of one ``closest_hit_chunks`` call on
+    these rays: [(its arguments with ``tested`` as it came in, its output,
+    ``tested`` as it left)]."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    calls, real = [], ci.worklist_pass
+
+    def spy(m8_p, ent, tested, cap, group, n_sub, cbits=None, want_gate=False):
+        before = tested.clone()
+        out = real(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
+        calls.append(((m8_p, ent, before, cap, group, n_sub, cbits, want_gate), out,
+                      tested.clone()))
+        return out
+
+    spy.launches = real.launches  # the wrapper counts on the name it is called by
+    with mock.patch.object(ci, "worklist_pass", spy):
+        ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min, scene.chunk_aabb_max,
+                              scene.woop_rows, EPS, ray_tile=ray_tile)
+    real.launches = spy.launches
+    return calls
+
+
+def check_worklist(label, args, got, tested_after):
+    """One K5 launch's output against its twin's on the same inputs, every
+    field and ``tested`` bit for bit."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    m8, ent, before, cap, group, n_sub, cbits, want_gate = args
+    tested = before.clone()
+    want = ci.worklist_pass_plain(m8, ent, tested, cap, group, n_sub, cbits, want_gate)
+    torch.cuda.synchronize()
+    bad = [name for name, g, w in zip(ci.Worklist._fields, got, want)
+           if (g is None) != (w is None) or (g is not None and not torch.equal(g, w))]
+    if not torch.equal(tested, tested_after):
+        bad.append("tested")
+    emit("worklist", case=label, tiles=m8.shape[0], groups=m8.shape[1] // group, cap=cap,
+         n_sub=n_sub, gate=want_gate, coarse_gate=cbits is not None,
+         active_groups=int(want.ga.sum()), listed=int(want.counts.sum()),
+         units=int(want.offsets[-1]), mismatched=bad)
+    if bad:
+        raise AssertionError(f"K5 disagrees with its twin ({label}: {bad})")
+
+
+def phase_worklist(scene, rays_sets):
+    """K5 against its twin bit for bit: each pass of the cascade on the
+    atrium's primaries and secondaries at 512- and 256-ray tiles, then a
+    whole cascade's random passes at ``bigatrium``'s shape (256 tiles x
+    1,203 groups, 4 sub-tiles) and at 4,500 groups, the keys then in global
+    scratch.  Timed beside the twin on the secondaries' first near pass and
+    residual.  Returns (ms, twin ms, bytes) of the first near pass."""
+    from tpu_pathtracer_torch import kernels
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_cuda import worklist_caps, worklist_case
+
+    timing = {}
+    for name, (o, d) in rays_sets.items():
+        for tile in (ci.RAY_TILE, 256):
+            calls = cascade_worklists(scene, o, d, tile)
+            for k, (args, got, after) in enumerate(calls):
+                check_worklist(f"{name} tile {tile} pass {k}", args, got, after)
+            if name == "secondary" and tile == ci.RAY_TILE:
+                timing = {"near1": calls[0], "residual": calls[-1]}
+    for label, (t_tiles, cg, n_sub) in {"bigatrium shape": (256, 1203, 4),
+                                        "past shared memory": (16, 4500, 8)}.items():
+        m8s, ent, cbits = worklist_case(cg, t_tiles, cg, ci.GROUP, n_sub, ties=True,
+                                        empty_tiles=1, with_cbits=True)
+        ent, cbits = ent.to(DEV), cbits.to(DEV)
+        tested = torch.zeros((t_tiles, cg), dtype=torch.bool, device=DEV)
+        for k, (m8, cap) in enumerate(zip(m8s, worklist_caps(cg))):
+            args = (m8.to(DEV), ent, tested.clone(), cap, ci.GROUP, n_sub, cbits, cap < cg)
+            got = ci.worklist_pass(*args[:2], tested, *args[3:])
+            check_worklist(f"{label} pass {k}", args, got, tested)
+
+    out = {}
+    for pass_name, ((m8, ent, before, cap, group, n_sub, cbits, want_gate), got, _) in timing.items():
+        tested = before.clone()
+        copy_ms = queued_ms(lambda: tested.copy_(before), 50)
+        ms = queued_ms(lambda: (tested.copy_(before), kernels.worklist(
+            m8, ent, tested, cap, group, n_sub, cbits, want_gate)), 50) - copy_ms
+        plain_ms = sync_ms(lambda: (tested.copy_(before), ci.worklist_pass_plain(
+            m8, ent, tested, cap, group, n_sub, cbits, want_gate)), 20) - copy_ms
+        n_bytes = nbytes(m8, ent, before, cbits) + nbytes(*[x for x in got if x is not None]) \
+            + before.numel()
+        bound_ms, bound_by = bound({"fp32": (0, 128)}, n_bytes)
+        emit("worklist_timing", worklist=pass_name, tiles=m8.shape[0], groups=before.shape[1],
+             cap=cap, ms=ms, plain_ms=plain_ms, copy_ms=copy_ms, bytes=n_bytes,
+             bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms, nvidia_smi=card_line())
+        out[pass_name] = (ms, plain_ms, n_bytes)
+    return out["near1"]
+
+
 def phase_tile256(scene, brutes, rays_sets):
     """256-ray tiles, the shape scenes above ``narrow_tile_chunks`` (4,096
     chunks) take: on the atrium's rays, B1 (4 sub-tiles of 64 rays:
@@ -2734,12 +2835,12 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 
 
 def run_only(names):
-    """The phases named (shading, shade_chain, engine, homebrew, sharded,
-    headline, headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
+    """The phases named (shading, shade_chain, worklist, engine, homebrew,
+    sharded, headline, headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
     ``headline_full`` runs only when named.  The last line then names the
     phases run; only the full run ends with the contract's line."""
-    unknown = set(names) - {"shading", "shade_chain", "engine", "homebrew", "sharded",
-                            "headline", "headline_full"}
+    unknown = set(names) - {"shading", "shade_chain", "worklist", "engine", "homebrew",
+                            "sharded", "headline", "headline_full"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
     from tpu_pathtracer_torch.scene import fixtures
@@ -2750,6 +2851,10 @@ def run_only(names):
             textured = True
         except ImportError:
             textured = False
+        if "worklist" in names:
+            _, _, _, scene, rays_sets = make_inputs(tmp)
+            phase_worklist(scene, rays_sets)
+            del scene, rays_sets
         if {"shading", "shade_chain"} & set(names):
             _, _, _, scene, rays_sets = make_inputs(tmp)
             field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
@@ -2801,6 +2906,7 @@ def main(only=()):
         b7_err, b7_args = phase_b7(scene, rays_sets)
         phase_modes(scene, rays_sets, brutes)
         phase_tile256(scene, brutes, rays_sets)
+        k5_ms, k5_plain_ms, k5_bytes = phase_worklist(scene, rays_sets)
         t0 = time.perf_counter()
         field = fixtures.make_sphere_field_gltf(os.path.join(tmp, "field", "field.gltf"),
                                                 n_spheres=64, subdiv=3, textured=textured)
@@ -2867,7 +2973,7 @@ def main(only=()):
         phase_golden(tmp)
         phase_goldens_env_lt(tmp)
         main_row = phase_render("main", "atrium 512x512@16spp", path, tmp,
-                                ("b1", "b2", "rng", "k1", "k2", "k3", "k4"),
+                                ("b1", "b2", "rng", "k1", "k2", "k3", "k4", "k5"),
                                 gen_seconds=gen_seconds)
         lit_row = phase_render("lights_main", "lit-banner atrium 512x512@16spp", lit_path, tmp,
                                ("b1", "b2", "b3", "rng", "k2"), gen_seconds=lit_gen)
@@ -2958,6 +3064,17 @@ def main(only=()):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
             "library_note": library, "work": {"bytes": n_bytes}})
+    bound_ms, bound_by = bound({"fp32": (0, 128)}, k5_bytes)
+    rows.append({
+        "name": "cascade pass worklist (K5)", "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/chunk_kernels.cu",
+        "replaces": "tpu_pathtracer/ops/pallas_intersect.py:907",
+        "replaces_note": "closest_hit_chunks' jnp glue around the Pallas kernels, fused by XLA",
+        "launches": main_row["launches_k5"], "max_abs_err": 0.0, "ms": k5_ms,
+        "plain_ms": k5_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share": bound_ms / k5_ms, "library_ms": None,
+        "library_note": "none: group stats, a per-tile sort, packing and a prefix sum in one pass",
+        "work": {"bytes": k5_bytes}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """The chunk cascade's plain twins and glue vs the JAX package: the B1 twin
 against the Pallas activity kernel in interpret mode, the cascade against
-the dense sweep, and the worklist helpers against their jnp originals."""
+the dense sweep, and the worklist helpers against their jnp originals; the
+worklist pass's wrapper (K5's plain path) against the cascade's chain and
+a statement of each output in plain Python."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,11 @@ import torch
 from tpu_pathtracer.ops import pallas_intersect as jpi
 from tpu_pathtracer.ops.intersect import closest_hit as jax_closest_hit
 from tpu_pathtracer.scene.accel import LEAF_SIZE, build_leaves, chunk_aabbs, morton_order
+from tpu_pathtracer_torch.config import IntersectTuning
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 from tpu_pathtracer_torch.scene.gltf import build_chunk_woop, build_woop, tri_capacity
+
+from test_torch_cuda import worklist_caps, worklist_case
 
 torch.set_num_threads(1)
 
@@ -191,6 +196,10 @@ def test_torch_kernel_wrappers_reject_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         ci.run_items(rays, rays[:, 0], idx[0], torch.zeros((8, 12, 128), device="meta"),
                      idx, idx[0], idx[:, :, None], EPS, 8, 2)
+    m8 = torch.zeros((1, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ci.worklist_pass(m8, m8.float(), torch.zeros((1, 2), dtype=torch.bool, device="meta"),
+                         1, 8, 2)
 
 
 def _kernel_units(offsets, counts, masks, group, n_sub, n_blocks):
@@ -520,3 +529,157 @@ def test_torch_triangle_major_copy_is_made_once():
     del woop
     gc.collect()
     assert key not in kernels._TRIANGLE_MAJOR
+
+
+def _chain_before_k5(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate):
+    """One pass's glue as ``closest_hit_chunks`` ran it as torch code: the
+    group stats, ``_worklist``, the packed masks gathered by slot, B2's unit
+    prefix sum, the scatter into ``tested`` and the live-block gate."""
+    ga_p, ge = ci._group_stats(m8_p != 0, ent, group)
+    ga_p = ga_p & ~tested
+    idx, counts, _ = ci._worklist(ga_p, ge, cap)
+    masks = torch.take_along_dim(ci._pack_group_masks(m8_p, group), idx[:, :, None].long(), dim=1)
+    offsets = ci.item_unit_offsets(counts, masks, group, n_sub)
+    tested.scatter_(1, idx.long(), True)
+    gate = None
+    if want_gate:
+        gate = ci._live_block_bits(ga_p & ~tested, group)
+        gate = gate if cbits is None else gate & cbits
+    return ga_p, ge, idx, counts, masks, offsets, gate
+
+
+def _worklist_in_python(m8, ent, tested, cap, group, n_sub, cbits, want_gate):
+    """Each output of one pass stated element by element in plain Python:
+    a group is active when a chunk has a bit and no earlier pass listed
+    it; the worklist is the active groups by (least entry, group id), the
+    last one repeated past ``cap`` or the count (group 0 with none); a
+    slot's word w holds chunk 4w + b's bits in byte b; an item's units are
+    its chunk's set bits below ``n_sub`` in an in-count slot, summed over
+    the items in (tile, slot, chunk) order; the gate has block b's bit
+    where a group over its 512 chunks is active and still untested after
+    the pass.  ``tested`` is updated in place (a numpy bool array)."""
+    t_tiles, c = m8.shape
+    cg = c // group
+    n_words, n_blocks = -(-group // 4), -(-c // 512)
+    ga = (m8.reshape(t_tiles, cg, group) != 0).any(axis=2) & ~tested
+    ge = ent.reshape(t_tiles, cg, group).min(axis=2)
+    idx = np.zeros((t_tiles, cap), np.int64)
+    counts = np.zeros(t_tiles, np.int64)
+    masks = np.zeros((t_tiles, cap, n_words), np.int64)
+    units = []
+    gate = np.zeros((t_tiles, -(-n_blocks // 32)), np.int64)
+    for t in range(t_tiles):
+        order = sorted((g for g in range(cg) if ga[t, g]), key=lambda g: (ge[t, g], g))
+        counts[t] = min(len(order), cap)
+        for s in range(cap):
+            g = order[min(s, counts[t] - 1)] if counts[t] else 0
+            idx[t, s] = g
+            for b in range(group):
+                masks[t, s, b // 4] += int(m8[t, g * group + b]) << (8 * (b % 4))
+                bits = int(m8[t, g * group + b]) & ((1 << n_sub) - 1)
+                units.append(bin(bits).count("1") if s < counts[t] else 0)
+        tested[t, idx[t]] = True
+        for b in range(n_blocks):
+            if any(ga[t, g] and not tested[t, g] for g in range(cg)
+                   if g * group < 512 * (b + 1) and (g + 1) * group > 512 * b):
+                gate[t, b // 32] |= 1 << (b % 32)
+    gate = np.where(gate >= 2**31, gate - 2**32, gate)
+    if cbits is not None:
+        gate &= cbits.numpy()
+    masks = np.where(masks >= 2**31, masks - 2**32, masks)
+    return ga, ge, idx, counts, masks, np.cumsum(units), gate if want_gate else None
+
+
+WORKLIST_CASES = {  # (tiles, groups, group, generator options)
+    "ties": (4, 45, 8, dict(ties=True)),  # 45 groups: not a multiple of 32
+    "empty_tiles": (5, 64, 8, dict(empty_tiles=2)),
+    "over_cap": (3, 81, 2, dict(p_active=0.8)),
+    "group3": (4, 37, 3, dict(ties=True, empty_tiles=1)),
+    "past_a_gate_word": (2, 2100, 8, dict(p_active=0.05)),  # 33 blocks of 512 chunks
+}
+
+
+@pytest.mark.parametrize("with_cbits", [False, True])
+@pytest.mark.parametrize("n_sub", [1, 8])
+@pytest.mark.parametrize("case", list(WORKLIST_CASES))
+def test_torch_worklist_pass_equals_the_chain(case, n_sub, with_cbits):
+    """``worklist_pass`` on CPU tensors (K5's plain path) over a whole
+    cascade's passes, ``tested`` carried from pass to pass, against the
+    cascade's chain and against the plain-Python statement, every output:
+    exact ties in group entry, tiles with no active group, counts past the
+    cap, group counts that are no multiple of 32, groups of 3 chunks, more
+    than one gate word, with and without the coarse gate."""
+    t_tiles, cg, group, opts = WORKLIST_CASES[case]
+    m8s, ent, cbits = worklist_case(len(case) + n_sub, t_tiles, cg, group, n_sub,
+                                    with_cbits=with_cbits, **opts)
+    tested = torch.zeros((t_tiles, cg), dtype=torch.bool)
+    tested_chain, tested_py = tested.clone(), tested.numpy().copy()
+    over_cap = False
+    for m8, cap in zip(m8s, worklist_caps(cg)):
+        want_gate = cap < cg
+        got = ci.worklist_pass(m8, ent, tested, cap, group, n_sub, cbits, want_gate)
+        chain = _chain_before_k5(m8, ent, tested_chain, cap, group, n_sub, cbits, want_gate)
+        py = _worklist_in_python(m8.numpy(), ent.numpy(), tested_py, cap, group, n_sub, cbits,
+                                 want_gate)
+        for name, g, c, p in zip(ci.Worklist._fields, got, chain, py):
+            assert (g is None) == (c is None) == (p is None), name
+            if g is not None:
+                assert g.dtype == c.dtype and torch.equal(g, c), (name, cap)
+                np.testing.assert_array_equal(g.numpy(), p, err_msg=f"{name} cap {cap}")
+        assert torch.equal(tested, tested_chain)
+        np.testing.assert_array_equal(tested.numpy(), tested_py)
+        over_cap |= bool((got.ga.sum(dim=1) > cap).any())
+    assert over_cap
+
+
+def test_torch_cascade_builds_each_worklist_in_one_pass_call(monkeypatch):
+    """``closest_hit_chunks`` makes each pass's worklist in one
+    ``worklist_pass`` call (the near passes asking for the next recheck's
+    gate words, the residual not), hands its unit list to B2, and gates each
+    recheck with those words; the hits equal the dense mode's."""
+    calls, gates = [], []
+    real_pass, real_items, real_act = ci.worklist_pass, ci.run_items, ci.tile_chunk_activity
+
+    def worklist_pass(*args):
+        out = real_pass(*args)
+        calls.append((args[3], args[7], out))
+        return out
+
+    def run_items(*args):
+        assert args[10] is calls[-1][2].offsets
+        return real_items(*args)
+
+    def tile_chunk_activity(*args, **kw):
+        if args[3] is not None:  # a recheck
+            gates.append(args[4])
+        return real_act(*args, **kw)
+
+    monkeypatch.setattr(ci, "worklist_pass", worklist_pass)
+    monkeypatch.setattr(ci, "run_items", run_items)
+    monkeypatch.setattr(ci, "tile_chunk_activity", tile_chunk_activity)
+    _, _, _, rows, cmin, cmax, cw = _scene(16000, seed=31, spread=20.0)
+    o, d = _rays(np.random.default_rng(32), 256, 24.0, 12.0)
+    got = ci.closest_hit_chunks(_t(o), _t(d), _t(cw), _t(cmin), _t(cmax), _t(rows), EPS,
+                                ray_tile=128, group=1)
+    assert [(cap, want_gate) for cap, want_gate, _ in calls] == [(7, True), (21, True),
+                                                                 (128, False)]
+    assert len(gates) == 2 and all(g is out.gate for g, (_, _, out) in zip(gates, calls))
+    dense = ci.closest_hit_chunks(_t(o), _t(d), _t(cw), _t(cmin), _t(cmax), _t(rows), EPS,
+                                  ray_tile=128, group=1, tuning=IntersectTuning(mode="dense"))
+    assert got.hit.any() and torch.equal(got.t, dense.t) and torch.equal(got.tri, dense.tri)
+
+
+def test_torch_super_block_boxes_made_once():
+    """The coarse gate's column-block boxes are ``group_boxes`` over 512
+    chunks, made at a scene's first gate and found again at every later
+    one."""
+    _, _, _, _, cmin, cmax, _ = _scene(9000, seed=3)
+    cmin, cmax = _t(cmin), _t(cmax)
+    lo, hi = ci._block_boxes_once(cmin, -1.0), ci._block_boxes_once(cmax, 1.0)
+    want = ci.group_boxes(cmin, cmax, ci.ACT_COLS)
+    assert torch.equal(lo, want[0]) and torch.equal(hi, want[1])
+    assert ci._block_boxes_once(cmin, -1.0) is lo and ci._block_boxes_once(cmax, 1.0) is hi
+    o, d = _rays(np.random.default_rng(4), 256, 8.0)
+    rays = ci.pack_rays(_t(o), _t(d))
+    m8, _, _ = ci.tile_chunk_activity(rays, *want, None, None, EPS, 128)
+    assert torch.equal(ci.super_block_bits(rays, cmin, cmax, EPS, 128), ci._bitpack(m8 != 0))

@@ -1,15 +1,17 @@
 """``add_rows``, the persistent engine's accumulation, adds repeated rows in
-the same order on every run; on the card, the threefry kernel equals its
-twin, and the CUDA graphs of the persistent loop, the scan engine and the
+the same order on every run; on the card, the threefry kernel and the
+cascade's worklist kernel (K5) equal their twins, and the CUDA graphs of the persistent loop, the scan engine and the
 homebrew renderers equal their eager loops, each captured once and
 replayed; a capture that fails raises without a retry.  The CUDA
 cases have the marker ``cuda`` and skip on a machine without a card; on the
 card run ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
+import numpy as np
 import pytest
 import torch
 
 from tpu_pathtracer_torch.models.pathtracer import add_rows
+from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -39,6 +41,76 @@ def test_torch_add_rows_repeats_exactly(device):
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+def worklist_case(seed, t_tiles, cg, group, n_sub, passes=3, p_active=0.3, ties=False,
+                  empty_tiles=0, with_cbits=False):
+    """Inputs of a cascade's worklist passes (``ci.worklist_pass``) as B1
+    leaves them, from numpy's generator: an initial activity of ``n_sub``
+    bits a chunk, its chunk entries ``ent`` (finite exactly where a bit is
+    set; with ``ties`` three values, so group entries tie), and for each
+    pass an activity whose bits are a subset of the initial ones (a
+    recheck only clears bits), the first ``empty_tiles`` tiles with none;
+    and the coarse gate words [T, ceil(C / 16384)] or None.  Returns
+    (m8 per pass, ent, cbits) as CPU tensors."""
+    rs = np.random.default_rng(seed)
+    c = cg * group
+    m0 = rs.integers(1, 1 << n_sub, size=(t_tiles, c))
+    m0[rs.random((t_tiles, c)) > p_active] = 0
+    vals = rs.integers(1, 4, size=(t_tiles, c)) if ties else rs.uniform(1e-4, 9.0, (t_tiles, c))
+    ent = np.where(m0 != 0, vals, np.inf).astype(np.float32)
+    m8s = []
+    for k in range(passes):
+        keep = m0 if k == 0 else m0 & rs.integers(0, 256, size=(t_tiles, c))
+        keep = np.where(rs.random((t_tiles, c)) < 0.5, keep, 0) if k else keep
+        keep[:empty_tiles] = 0
+        m8s.append(torch.from_numpy(keep.astype(np.int32)))
+    cbits = None
+    if with_cbits:
+        cbits = torch.from_numpy(rs.integers(-2**31, 2**31, size=(t_tiles, -(-c // 16384)))
+                                 .astype(np.int32))
+    return m8s, torch.from_numpy(ent), cbits
+
+
+def worklist_caps(cg):
+    """The cascade's pass caps over ``cg`` groups at the default tuning
+    (near passes 2 and 6 quarters of max(4, cg // 9), then the residual)."""
+    base = max(4, cg // 9)
+    return [cap for cap in (2 * base // 4, 6 * base // 4) if cap < cg] + [cg]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 213, 8, 8), (256, 1203, 8, 4), (16, 4500, 8, 8),
+                                   (64, 81, 3, 2)],
+                         ids=["atrium", "bigatrium", "past_shared_memory", "group3"])
+@pytest.mark.parametrize("with_cbits", [False, True])
+def test_torch_worklist_kernel_equals_twin(shape, with_cbits):
+    """K5 (``csrc/chunk_kernels.cu`` ``worklist_kernel``) against its twin,
+    the cascade's torch chain, bit for bit over a whole cascade's passes
+    (``tested`` carried from pass to pass on both sides): the atrium's 128
+    tiles x 213 groups, ``bigatrium``'s 256 x 1,203 at 4 sub-tiles, 4,500
+    groups (the keys past shared memory, in global scratch) and groups of
+    3 chunks; entries tied, a tile with no active group, the gate words
+    with and without the coarse gate."""
+    _needs_card()
+    t_tiles, cg, group, n_sub = shape
+    m8s, ent, cbits = worklist_case(t_tiles + cg, t_tiles, cg, group, n_sub, ties=True,
+                                    empty_tiles=1, with_cbits=with_cbits)
+    ent = ent.cuda()
+    cbits = None if cbits is None else cbits.cuda()
+    tested_k = torch.zeros((t_tiles, cg), dtype=torch.bool, device="cuda")
+    tested_p = tested_k.clone()
+    launches = ci.worklist_pass.launches
+    caps = worklist_caps(cg)
+    for m8, cap in zip(m8s, caps):
+        gate = cap < cg
+        got = ci.worklist_pass(m8.cuda(), ent, tested_k, cap, group, n_sub, cbits, gate)
+        want = ci.worklist_pass_plain(m8.cuda(), ent, tested_p, cap, group, n_sub, cbits, gate)
+        for name, g, w in zip(ci.Worklist._fields, got, want):
+            assert (g is None) == (w is None) and (g is None or torch.equal(g, w)), (name, cap)
+        assert torch.equal(tested_k, tested_p), cap
+        assert int(got.counts.max()) == cap or cap == cg
+    assert ci.worklist_pass.launches == launches + len(caps)
 
 
 @pytest.mark.cuda

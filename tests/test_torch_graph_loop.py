@@ -246,6 +246,19 @@ def test_torch_tensor_key_threefry_equals_jax(seed):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def test_torch_graph_replays_count_every_kernel_wrapper():
+    """Every kernel wrapper with a ``launches`` counter is one that a graph
+    replay adds its captured launches to (``models.graph.counted_wrappers``),
+    so the counters read the launches the card ran, graphed or not."""
+    from tpu_pathtracer_torch.models import graph
+    from tpu_pathtracer_torch.ops import intersect
+
+    counted = {fn for mod in (ci, intersect, trng, pt) for fn in vars(mod).values()
+               if callable(fn) and hasattr(fn, "launches")}
+    assert ci.worklist_pass in counted
+    assert counted == set(graph.counted_wrappers())
+
+
 def test_torch_threefry_wrapper_dispatch():
     """The threefry wrapper takes its twin for CPU tensors and counts no
     launch; any device other than the CPU or CUDA raises."""

@@ -77,6 +77,38 @@
 //   ulp of the twin); TF32 or bf16 products in wgmma would break it.  The
 //   levers here are occupancy, the asynchronous staging and the shared
 //   memory layout.
+//
+// K5  worklist_kernel
+//   Replaces no TPU kernel: the bookkeeping of one pass of the cascade,
+//   which the JAX package writes as jnp code around its Pallas kernels and
+//   XLA fuses (tpu_pathtracer/ops/pallas_intersect.py:907 closest_hit_chunks,
+//   with _group_stats, _worklist, _pack_group_masks and _live_block_bits),
+//   and which the port ran as 34-50 small torch operations a pass.  One
+//   launch writes what that chain writes, bit for bit, from the pass's
+//   activity m8 / ent [T, C] and the groups the earlier passes listed
+//   (tested [T, CG]): the group stats ga / ge, the front-to-back worklist
+//   idx [T, cap] with its clamped counts, the mask words [T, cap, W], B2's
+//   unit prefix sum (the port's item_unit_offsets), tested with this pass's
+//   groups set, and the next recheck's gate words (_live_block_bits, ANDed
+//   with the coarse gate).  Its twin is that chain,
+//   ops/chunk_intersect.py:worklist_pass_plain.
+//   Bound on the H100: bytes, m8 and ent read once (8 bytes per (tile,
+//   chunk)); at the render's shapes one block's chain of dependent steps
+//   (stats, sort, look-back, scan) sets the time, not the bytes.
+//   Design: one block per ray tile, so no step but the unit prefix crosses
+//   blocks.  A thread per group takes the group's stats and puts each active
+//   untested group's key (entry bits in float order << 32 | group id) into a
+//   row in shared memory, or in global scratch where the wrapper finds the
+//   row too long (kernels.WORKLIST_SMEM_KEYS); a bitonic sort orders the
+//   row, which is torch's stable argsort of where(ga, ge, inf) wherever an
+//   active group's entry is finite (B1 gives a finite entry to every chunk
+//   with a set bit).  The tile's unit total is
+//   published for a decoupled look-back: blocks take tiles in the order they
+//   start (a ticket), so a block waits only for blocks that already run, and
+//   warp 0 sums its predecessors 32 at a time.  Then a thread per slot
+//   writes its group id, mask words and tested bit, and a block-wide scan
+//   of the slots' units gives the offsets.  The gate words take a warp per
+//   512-chunk block and a shared word per 32 blocks.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -341,6 +373,222 @@ __global__ void items_final_kernel(
   tpt::decode_tri_key(keys[i], i, tmin0, tidx0, t_out, tri_out);
 }
 
+constexpr int kListThreads = 512;
+constexpr int kListWarps = kListThreads / 32;
+// Look-back words: the flag above a tile's unit count.
+constexpr unsigned long long kTileTotal = 1ull << 32;   // the tile's own units
+constexpr unsigned long long kTilePrefix = 2ull << 32;  // units up to and with the tile
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A float's bits as an unsigned key that orders like torch's sort of the
+// floats: -0 equal to +0, NaN after +inf.
+__device__ __forceinline__ unsigned float_order(float v) {
+  if (v != v) return 0xFFFFFFFFu;
+  const unsigned b = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The exclusive prefix sum of v over the block's threads in thread order;
+// *total gets the block's sum.  Every thread of the block calls it.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* total, int* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < kListWarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    warp_sums[lane] = s;
+  }
+  __syncthreads();
+  const int before = warp ? warp_sums[warp - 1] : 0;
+  *total = warp_sums[kListWarps - 1];
+  __syncthreads();  // warp_sums is free for the next call
+  return before + x - v;
+}
+
+__global__ void __launch_bounds__(kListThreads) worklist_kernel(
+    const int32_t* __restrict__ m8,     // [T, C] sub-tile bits of each chunk
+    const float* __restrict__ ent,      // [T, C] entry of each chunk
+    uint8_t* __restrict__ tested,       // [T, CG] groups the earlier passes listed (set here)
+    const int32_t* __restrict__ cbits,  // [T, n_gate] coarse gate, or null
+    int n_groups, int group, int cap, int n_words, int n_sub, int n_gate, int n_pad,
+    unsigned long long* __restrict__ scratch,  // [T, n_pad] key rows, or null: shared memory
+    unsigned long long* __restrict__ status,   // [1 + T] zero on entry: ticket, look-back words
+    uint8_t* __restrict__ ga,           // [T, CG]
+    float* __restrict__ ge,             // [T, CG]
+    int32_t* __restrict__ idx,          // [T, cap]
+    int32_t* __restrict__ counts,       // [T]
+    int32_t* __restrict__ masks,        // [T, cap, n_words]
+    int32_t* __restrict__ offsets,      // [T * cap * group]
+    int32_t* __restrict__ gate) {       // [T, n_gate], or null
+  extern __shared__ unsigned long long dyn[];
+  __shared__ int s_tile, s_n, s_base;
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned* s_gate = reinterpret_cast<unsigned*>(dyn + (scratch ? 0 : n_pad));  // [n_gate]
+  if (threadIdx.x == 0) {
+    s_tile = (int)atomicAdd(status, 1ull);
+    s_n = 0;
+  }
+  for (int w = threadIdx.x; w < n_gate && gate; w += kListThreads) s_gate[w] = 0u;
+  __syncthreads();
+  const int tile = s_tile;
+  const int n_cols = n_groups * group;
+  const int32_t* m8_row = m8 + (size_t)tile * n_cols;
+  const float* ent_row = ent + (size_t)tile * n_cols;
+  const size_t g_row = (size_t)tile * n_groups;
+  unsigned long long* keys = scratch ? scratch + (size_t)tile * n_pad : dyn;
+
+  // Group stats; the key of each active untested group.
+  for (int g = threadIdx.x; g < n_groups; g += kListThreads) {
+    const int32_t* m = m8_row + (size_t)g * group;
+    const float* e = ent_row + (size_t)g * group;
+    bool act = false;
+    float emin = e[0];
+#pragma unroll 8
+    for (int k = 0; k < group; ++k) {  // no short cut: the loads go out together
+      act = act | (m[k] != 0);
+      emin = tpt::nan_min(emin, e[k]);
+    }
+    const bool on = act && !tested[g_row + g];
+    ga[g_row + g] = on;
+    ge[g_row + g] = emin;
+    if (on) keys[atomicAdd(&s_n, 1)] = (unsigned long long)float_order(emin) << 32 | (unsigned)g;
+  }
+  __syncthreads();
+  const int n = s_n;
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int i = n + threadIdx.x; i < n2; i += kListThreads) keys[i] = ~0ull;
+  __syncthreads();
+
+  // Bitonic sort of keys[0, n2): ascending (entry, group id).
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n2 / 2; i += kListThreads) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const unsigned long long a = keys[lo], b = keys[lo + j];
+        if ((a > b) == ((lo & k) == 0)) {
+          keys[lo] = b;
+          keys[lo + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int count = min(n, cap);
+  if (threadIdx.x == 0) counts[tile] = count;
+  // A slot's group: the sorted list; past the count the last in-count group
+  // again (a retest changes nothing); group 0 in a tile with none.
+  auto slot_group = [&](int s) {
+    return count ? (int)(unsigned)(keys[min(s, count - 1)] & 0xFFFFFFFFull) : 0;
+  };
+  const unsigned submask = (1u << n_sub) - 1u;
+
+  // The tile's units (the set sub-tile bits of its in-count slots), then its
+  // base: the units of the tiles before it, by decoupled look-back.
+  int units = 0;
+  for (int s = threadIdx.x; s < count; s += kListThreads) {
+    const int32_t* m = m8_row + (size_t)slot_group(s) * group;
+#pragma unroll 8
+    for (int k = 0; k < group; ++k) units += __popc((unsigned)m[k] & submask);
+  }
+  int tile_units;
+  block_exclusive_sum(units, &tile_units, warp_sums);
+  if (warp == 0) {
+    int before = 0;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(status + 1, kTilePrefix | (unsigned)tile_units);
+    } else {
+      if (lane == 0) atomicExch(status + 1 + tile, kTileTotal | (unsigned)tile_units);
+      for (int top = tile - 1;; top -= 32) {
+        const int p = top - lane;  // lane 0: the nearest tile
+        unsigned long long w = kTilePrefix;  // before the first tile: no units
+        do {
+          if (p >= 0) w = *reinterpret_cast<volatile unsigned long long*>(status + 1 + p);
+        } while (__any_sync(kFull, (w >> 32) == 0));
+        const unsigned pre = __ballot_sync(kFull, (w >> 32) == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        int v = lane <= stop ? (int)(unsigned)(w & 0xFFFFFFFFull) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        before += v;
+        if (pre) break;
+      }
+      if (lane == 0) atomicExch(status + 1 + tile, kTilePrefix | (unsigned)(before + tile_units));
+    }
+    if (lane == 0) s_base = before;
+  }
+  __syncthreads();
+
+  // A thread per slot: its group, mask words and tested bit, and its items'
+  // offsets (units of item (slot, k): the set bits of chunk k, none past
+  // the count).
+  int carry = s_base;
+  for (int s0 = 0; s0 < cap; s0 += kListThreads) {
+    const int s = s0 + threadIdx.x;
+    const bool live = s < cap;
+    const int g = live ? slot_group(s) : 0;
+    const int32_t* m = m8_row + (size_t)g * group;
+    int slot_units = 0;
+    if (live) {
+      const size_t ts = (size_t)tile * cap + s;
+      idx[ts] = g;
+      tested[g_row + g] = 1;
+      for (int w = 0; w < n_words; ++w) {
+        unsigned word = 0;
+        for (int b = 0; b < 4 && 4 * w + b < group; ++b) word += (unsigned)m[4 * w + b] << (8 * b);
+        masks[ts * n_words + w] = (int32_t)word;
+      }
+      if (s < count) {
+#pragma unroll 8
+        for (int k = 0; k < group; ++k) slot_units += __popc((unsigned)m[k] & submask);
+      }
+    }
+    int round_units;
+    int at = carry + block_exclusive_sum(slot_units, &round_units, warp_sums);
+    if (live) {
+      int32_t* out = offsets + ((size_t)tile * cap + s) * group;
+      for (int k = 0; k < group; ++k) {
+        if (s < count) at += __popc((unsigned)m[k] & submask);
+        out[k] = at;
+      }
+    }
+    carry += round_units;
+  }
+
+  if (gate) {
+    // The next recheck's gate: a 512-chunk block is on while one of its
+    // groups is active and still untested.
+    __syncthreads();  // ga and tested, as written above
+    const int n_blocks = (n_cols + kActCols - 1) / kActCols;
+    for (int b = warp; b < n_blocks; b += kListWarps) {
+      const int g0 = (int)((long long)kActCols * b / group);
+      const int g1 = min(n_groups, (int)(((long long)kActCols * (b + 1) + group - 1) / group));
+      bool live = false;
+      for (int g = g0 + lane; g < g1; g += 32) live = live | (ga[g_row + g] && !tested[g_row + g]);
+      if (__any_sync(kFull, live) && lane == 0) atomicOr(&s_gate[b / 32], 1u << (b % 32));
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < n_gate; w += kListThreads) {
+      const size_t at = (size_t)tile * n_gate + w;
+      unsigned word = s_gate[w];
+      if (cbits) word &= (unsigned)cbits[at];
+      gate[at] = (int32_t)word;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tpt_activity(
@@ -385,5 +633,25 @@ extern "C" int tpt_items(
   items_final_kernel<<<(n_rays + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, st>>>(
       (const unsigned long long*)keys, (const float*)tmin0, (const int32_t*)tidx0, n_rays,
       (float*)t_out, (int32_t*)tri_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_worklist(
+    const void* m8, const void* ent, void* tested, const void* cbits, int t_tiles,
+    int n_groups, int group, int cap, int n_words, int n_sub, int n_gate, int n_pad,
+    void* scratch, void* status, void* ga, void* ge, void* idx, void* counts, void* masks,
+    void* offsets, void* gate, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(status, 0, (size_t)(t_tiles + 1) * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  // Shared memory: the key row (unless in scratch), then the gate words.
+  const size_t smem = (scratch ? 0 : (size_t)n_pad * sizeof(unsigned long long)) +
+                      (size_t)n_gate * sizeof(unsigned);
+  worklist_kernel<<<t_tiles, kListThreads, smem, st>>>(
+      (const int32_t*)m8, (const float*)ent, (uint8_t*)tested, (const int32_t*)cbits, n_groups,
+      group, cap, n_words, n_sub, n_gate, n_pad, (unsigned long long*)scratch,
+      (unsigned long long*)status, (uint8_t*)ga, (float*)ge, (int32_t*)idx, (int32_t*)counts,
+      (int32_t*)masks, (int32_t*)offsets, (int32_t*)gate);
   return (int)cudaGetLastError();
 }

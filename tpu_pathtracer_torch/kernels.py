@@ -15,7 +15,7 @@ dispatching wrappers with their plain twins and launch counters live in
 ``ops/intersect.py`` (K1, the flat light-cluster pdf) and
 ``models/pathtracer.py`` (K2, ``hit_info``'s row gather and texture fetch;
 K3 and K4, the bounce's sampling / BSDF chain before and after the light
-pdf).
+pdf); K5, a cascade pass's worklist, is in ``ops/chunk_intersect.py`` too.
 No launch makes a runtime call that a CUDA graph capture refuses: B2's and
 B6's persistent grids (and B6's shared-memory attribute) are set at their
 first launch and kept.
@@ -49,6 +49,7 @@ LIBRARIES = {
     "chunk_kernels": {
         "tpt_activity": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
         "tpt_items": [_P] * 8 + [_I] * 7 + [_F] + [_P] * 4,
+        "tpt_worklist": [_P] * 4 + [_I] * 8 + [_P] * 10,
     },
     "light_sort_kernels": {
         "tpt_light_pdf": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
@@ -259,6 +260,53 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
         )
     _raise_on(rc, "items")
     return t_out, tri_out
+
+
+# K5 sorts a tile's active groups in shared memory while a row of this many
+# 64-bit keys (the group count rounded up to a power of two) fits; a longer
+# row goes through global scratch.
+WORKLIST_SMEM_KEYS = 2048
+
+
+def worklist(m8, ent, tested, cap, group, n_sub, cbits, want_gate):
+    """Launch K5 (contract: ``ops.chunk_intersect.worklist_pass_plain``):
+    (ga, ge, idx, counts, masks, offsets, gate words or None), with this
+    pass's groups set in ``tested`` in place.  ``m8`` holds ``n_sub`` bits
+    a chunk and ``ent`` is finite wherever ``m8`` is set (B1's outputs)."""
+    dev = m8.device
+    t_tiles, c = m8.shape
+    cg = c // group if 1 <= group <= 32 else 0
+    n_gate = -(-c // (32 * 512))  # one bit per 512-chunk block
+    if (t_tiles == 0 or cg == 0 or c % group or not 1 <= cap <= cg or not 1 <= n_sub <= 8
+            or n_gate > 1024 or t_tiles * cap * group * n_sub >= 2**31):
+        raise ValueError(f"worklist: T={t_tiles} chunks={c} group={group} cap={cap} n_sub={n_sub}")
+    _check(m8, "m8", torch.int32, (t_tiles, c), dev)
+    _check(ent, "ent", torch.float32, (t_tiles, c), dev)
+    _check(tested, "tested", torch.bool, (t_tiles, cg), dev)
+    if cbits is not None:
+        _check(cbits, "cbits", torch.int32, (t_tiles, n_gate), dev)
+    n_words = -(-group // 4)
+    n_pad = 1 << (cg - 1).bit_length()
+    scratch = None
+    if n_pad > WORKLIST_SMEM_KEYS:
+        scratch = torch.empty((t_tiles, n_pad), dtype=torch.int64, device=dev)
+    status = torch.empty((t_tiles + 1,), dtype=torch.int64, device=dev)
+    ga = torch.empty((t_tiles, cg), dtype=torch.bool, device=dev)
+    ge = torch.empty((t_tiles, cg), dtype=torch.float32, device=dev)
+    idx = torch.empty((t_tiles, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty((t_tiles,), dtype=torch.int32, device=dev)
+    masks = torch.empty((t_tiles, cap, n_words), dtype=torch.int32, device=dev)
+    offsets = torch.empty((t_tiles * cap * group,), dtype=torch.int32, device=dev)
+    gate = torch.empty((t_tiles, n_gate), dtype=torch.int32, device=dev) if want_gate else None
+    with torch.cuda.device(dev):
+        rc = library("chunk_kernels").tpt_worklist(
+            _ptr(m8), _ptr(ent), _ptr(tested), _ptr(cbits), t_tiles, cg, group, cap, n_words,
+            n_sub, n_gate, n_pad, _ptr(scratch), _ptr(status), _ptr(ga), _ptr(ge), _ptr(idx),
+            _ptr(counts), _ptr(masks), _ptr(offsets), _ptr(gate),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "worklist")
+    return ga, ge, idx, counts, masks, offsets, gate
 
 
 # Clusters per B3 block: a tile's worklist is cut into segments this long.

@@ -35,9 +35,9 @@ def counted_wrappers() -> tuple:
     from . import pathtracer
 
     return (ci.tile_chunk_activity, ci.run_items, ci.run_light_pdf, ci.nearest_box_ids,
-            ci.run_dense, ci.run_slots, ci.ray_group_bools, rng.lane_uniforms_key,
-            intersect.light_pdf_flat, pathtracer.hit_info, pathtracer.shade_sample,
-            pathtracer.shade_finish)
+            ci.run_dense, ci.run_slots, ci.ray_group_bools, ci.worklist_pass,
+            rng.lane_uniforms_key, intersect.light_pdf_flat, pathtracer.hit_info,
+            pathtracer.shade_sample, pathtracer.shade_finish)
 
 
 def capture_node_counter(stream: torch.cuda.Stream) -> Callable[[], int]:

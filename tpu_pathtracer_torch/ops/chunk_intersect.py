@@ -48,8 +48,12 @@ clusters' AABBs, a per-tile worklist of pierced clusters, kernel B3), and
 which the "target" wavefront sort key orders by.  The other sort keys
 ("hint", "dirhint", "cell") are plain tensor code at the end.
 
-The kernels are hand-written CUDA (``csrc/chunk_kernels.cu`` for B1/B2,
-``csrc/light_sort_kernels.cu`` for B3/B4, ``csrc/mode_kernels.cu`` for
+Each pass's worklist (its groups front to back, their mask words, B2's
+unit list, the groups it tests and the next recheck's gate) is one launch
+of kernel K5, ``worklist_pass``.
+
+The kernels are hand-written CUDA (``csrc/chunk_kernels.cu`` for B1/B2 and
+K5, ``csrc/light_sort_kernels.cu`` for B3/B4, ``csrc/mode_kernels.cu`` for
 B5-B7, bound in ``kernels.py``).  Each wrapper here has a plain-torch twin
 with the same signature; a CPU tensor goes to the twin, a CUDA tensor to
 the kernel, and anything else raises.  Each wrapper counts its kernel
@@ -66,7 +70,7 @@ tile's whole worklist.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -442,17 +446,21 @@ def slot_unit_offsets(counts: torch.Tensor, masks: torch.Tensor, group: int, n_s
     return torch.cumsum(units.reshape(-1), 0, dtype=torch.int32)
 
 
-def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub):
+def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub,
+              offsets=None):
     """B2 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors (see ``run_items_plain`` for the contract).  Under
-    ``count_work`` it notes its units, the last entry of
-    ``item_unit_offsets`` (the kernel's own unit list)."""
+    tensors (see ``run_items_plain`` for the contract).  ``offsets``: the
+    worklist's ``item_unit_offsets`` where the caller has them (K5 writes
+    them with the worklist), else taken here.  Under ``count_work`` it
+    notes its units, the last entry of ``offsets`` (the kernel's own unit
+    list)."""
     seen = _WORK[0]
     if rays.is_cuda:
         from .. import kernels
 
         with stage("kernels"):
-            offsets = item_unit_offsets(counts, masks, group, n_sub)
+            if offsets is None:
+                offsets = item_unit_offsets(counts, masks, group, n_sub)
             out = kernels.items(
                 rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub, offsets
             )
@@ -461,7 +469,7 @@ def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
         out = run_items_plain(
             rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
         )
-        if seen is not None:
+        if seen is not None and offsets is None:
             offsets = item_unit_offsets(counts, masks, group, n_sub)
     else:
         raise RuntimeError(f"run_items: no kernel for device {rays.device}")
@@ -616,12 +624,25 @@ ray_group_bools.launches = 0
 # --------------------------------------------------------------------------
 
 
+# A scene's column-block boxes (``group_boxes(.., ACT_COLS)``), each side
+# keyed on the identity of its source tensor.
+_BLOCK_BOXES: dict = {}
+
+
+def _block_boxes_once(corners: torch.Tensor, side: float) -> torch.Tensor:
+    """``group_boxes(.., ACT_COLS)``'s minima (``side`` -1) or maxima (+1) of
+    the chunk box corners ``corners``, made once per source tensor
+    (``kernels.made_once``): a scene constant, found again at every gate."""
+    return made_once(_BLOCK_BOXES, (id(corners), side), corners,
+                     lambda: group_boxes(corners, corners, ACT_COLS)[int(side > 0)].contiguous())
+
+
 def super_block_bits(rays, chunk_min, chunk_max, min_dst, ray_tile, tbest=None):
     """Coarse gate: one AABB per ``ACT_COLS``-chunk column block, slab-tested
     by B1 at trivial width, bit-packed to [T, ceil(nb/32)] int32.  Valid for
     every recheck too (a per-ray t bound only shrinks activity); ``tbest``
     gives the t-bounded form."""
-    cb_min, cb_max = group_boxes(chunk_min, chunk_max, ACT_COLS)
+    cb_min, cb_max = _block_boxes_once(chunk_min, -1.0), _block_boxes_once(chunk_max, 1.0)
     m8, _, _ = tile_chunk_activity(rays, cb_min, cb_max, tbest, None, min_dst, ray_tile)
     return _bitpack(m8 != 0)
 
@@ -669,6 +690,78 @@ def _live_block_bits(live: torch.Tensor, group: int) -> torch.Tensor:
     lc = live.repeat_interleave(group, dim=1)
     lc = F.pad(lc, (0, (-lc.shape[1]) % ACT_COLS))
     return _bitpack(lc.reshape(t_tiles, -1, ACT_COLS).any(dim=2))
+
+
+# --------------------------------------------------------------------------
+# Kernel K5: one cascade pass's worklist (the glue between B1 and B2)
+# --------------------------------------------------------------------------
+
+
+class Worklist(NamedTuple):
+    """One pass of the cascade: its groups and B2's unit list."""
+
+    ga: torch.Tensor  # [T, CG] bool: a chunk of the group active, the group untested
+    ge: torch.Tensor  # [T, CG] f32: the group's least chunk entry
+    idx: torch.Tensor  # [T, cap] int32: active groups, front to back
+    counts: torch.Tensor  # [T] int32: min(active groups, cap)
+    masks: torch.Tensor  # [T, cap, W] int32: each listed group's chunk bytes
+    offsets: torch.Tensor  # [T * cap * group] int32: ``item_unit_offsets``
+    gate: Optional[torch.Tensor]  # [T, ceil(nb/32)] int32: the next recheck's gate, or None
+
+
+def worklist_pass_plain(
+    m8_p: torch.Tensor,  # [T, C] int32 sub-tile bits of the pass's activity
+    ent: torch.Tensor,  # [T, C] f32 chunk entries of the initial activity
+    tested: torch.Tensor,  # [T, CG] bool groups the earlier passes listed (updated)
+    cap: int,
+    group: int,
+    n_sub: int,
+    cbits: Optional[torch.Tensor] = None,  # [T, ceil(nb/32)] int32 coarse gate
+    want_gate: bool = False,
+) -> Worklist:
+    """Plain twin of the K5 kernel, the cascade's torch chain of one pass:
+    the group stats (active and untested, least entry), the front-to-back
+    worklist of at most ``cap`` groups, their mask words, B2's unit prefix
+    sum, this pass's groups set in ``tested`` (in place), and with
+    ``want_gate`` the next recheck's gate words (the column blocks that
+    still hold an active untested group, ANDed with ``cbits``)."""
+    ga, ge = _group_stats(m8_p != 0, ent, group)
+    ga = ga & ~tested
+    idx, counts, _ = _worklist(ga, ge, cap)
+    masks = torch.take_along_dim(_pack_group_masks(m8_p, group), idx[:, :, None].long(), dim=1)
+    offsets = item_unit_offsets(counts, masks, group, n_sub)
+    tested.scatter_(1, idx.long(), True)
+    gate = None
+    if want_gate:
+        gate = _live_block_bits(ga & ~tested, group)
+        if cbits is not None:
+            gate = gate & cbits
+    return Worklist(ga, ge, idx, counts, masks, offsets, gate)
+
+
+def worklist_pass(m8_p, ent, tested, cap, group, n_sub, cbits=None, want_gate=False) -> Worklist:
+    """K5 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors (see ``worklist_pass_plain`` for the contract; the kernel
+    equals it wherever ``ent`` is finite under a set ``m8_p`` bit, as B1
+    leaves them)."""
+    if m8_p.is_cuda:
+        from .. import kernels
+
+        with stage("kernels"):
+            out = kernels.worklist(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
+        worklist_pass.launches += 1
+        return Worklist(*out)
+    if m8_p.device.type == "cpu":
+        return worklist_pass_plain(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
+    raise RuntimeError(f"worklist_pass: no kernel for device {m8_p.device}")
+
+
+worklist_pass.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Mode "bins" and the entry point (plain tensor code around the kernels)
+# --------------------------------------------------------------------------
 
 
 def _bins_worklist(gb: torch.Tensor, br: int, p_cap: int):
@@ -844,24 +937,21 @@ def closest_hit_chunks(
     if mode == "dense":
         t_best, tri = run_dense(rays, t_inf, i_zero, chunk_woop, _bitpack(m8 != 0), min_dst)
         return _winner(rays, woop_rows, t_best, tri)
-    _, ge = _group_stats(m8 != 0, ent, group)
 
-    def recheck(t_c, live, final):
+    def recheck(t_c, gate, is_cheap):
         """Activity under each ray's best t so far.  Full form: the slab
         test again with the per-ray bound, gated to the column blocks that
-        still hold an active untested group.  Cheap form (cheap_recheck 1
-        everywhere, 2 between near passes only): the stored sub-tile entry
-        minima against the sub-tile maximum of the per-ray bound."""
-        if cheap == 1 or (cheap == 2 and not final):
+        still hold an active untested group (``gate``, from the pass's
+        worklist).  Cheap form (cheap_recheck 1 everywhere, 2 between near
+        passes only): the stored sub-tile entry minima against the sub-tile
+        maximum of the per-ray bound."""
+        if is_cheap:
             tb_sub = t_c.reshape(t_tiles, n_sub, ray_tile // n_sub).amax(dim=2)
             ok = torch.isfinite(sub_ent0) & (sub_ent0 <= tb_sub[:, :, None])
             shifts = torch.arange(n_sub, dtype=torch.int32, device=rays.device)[None, :, None]
             return (ok.to(torch.int32) << shifts).sum(dim=1, dtype=torch.int32)
-        gate = cbits
-        if tuning.gate_recheck:
-            gate = _live_block_bits(live, group)
-            if cbits is not None:
-                gate = gate & cbits
+        if not tuning.gate_recheck:
+            gate = cbits
         if cbits is not None and tuning.super_tbound_min and n_blocks >= tuning.super_tbound_min:
             gate = gate & super_block_bits(
                 rays, chunk_min, chunk_max, min_dst, ray_tile, tbest=t_c
@@ -870,18 +960,20 @@ def closest_hit_chunks(
             rays, chunk_min, chunk_max, t_c, gate, min_dst, ray_tile, n_sub
         )[0]
 
-    def run_pass(m8_p, ga_p, cap, t_c, i_c):
-        """One worklist pass: B6's slot grid under "twopass", B2 otherwise."""
-        idx, counts, _ = _worklist(ga_p, ge, cap)
-        masks = torch.take_along_dim(
-            _pack_group_masks(m8_p, group), idx[:, :, None].long(), dim=1
-        )
-        kernel = run_slots if mode == "twopass" else run_items
-        t_c, i_c = kernel(
-            rays, t_c, i_c, chunk_woop, idx.contiguous(), counts.contiguous(),
-            masks.contiguous(), min_dst, group, n_sub,
-        )
-        return t_c, i_c, idx
+    def run_pass(m8_p, cap, t_c, i_c, want_gate):
+        """One worklist pass (K5), then B6's slot grid under "twopass", B2
+        otherwise.  Returns (t, tri, the next recheck's gate words)."""
+        wl = worklist_pass(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
+        if mode == "twopass":
+            t_c, i_c = run_slots(
+                rays, t_c, i_c, chunk_woop, wl.idx, wl.counts, wl.masks, min_dst, group, n_sub
+            )
+        else:
+            t_c, i_c = run_items(
+                rays, t_c, i_c, chunk_woop, wl.idx, wl.counts, wl.masks, min_dst, group, n_sub,
+                wl.offsets,
+            )
+        return t_c, i_c, wl.gate
 
     base = max(tuning.pass1_min, cg // 9)
     ladder = [int(x) * base // 4 for x in tuning.near.split(",")]
@@ -890,13 +982,12 @@ def closest_hit_chunks(
     t_cur, i_cur = t_inf, i_zero
     m8_p = m8
     for k, cap in enumerate(near_caps):
-        ga_p = _group_stats(m8_p != 0, ent, group)[0] & ~tested
-        t_cur, i_cur, idx = run_pass(m8_p, ga_p, cap, t_cur, i_cur)
-        tested.scatter_(1, idx.long(), True)
-        m8_p = recheck(t_cur, ga_p & ~tested, k == len(near_caps) - 1)
+        is_cheap = cheap == 1 or (cheap == 2 and k < len(near_caps) - 1)
+        want_gate = not is_cheap and bool(tuning.gate_recheck)
+        t_cur, i_cur, gate = run_pass(m8_p, cap, t_cur, i_cur, want_gate)
+        m8_p = recheck(t_cur, gate, is_cheap)
     # Residual: everything still active and untested, in one pass.
-    ga_r = _group_stats(m8_p != 0, ent, group)[0] & ~tested
-    t_best, tri, _ = run_pass(m8_p, ga_r, cg, t_cur, i_cur)
+    t_best, tri, _ = run_pass(m8_p, cg, t_cur, i_cur, False)
     return _winner(rays, woop_rows, t_best, tri)
 
 

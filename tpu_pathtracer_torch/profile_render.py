@@ -57,7 +57,7 @@ KERNELS = {
     "nearest_kernel": "B4", "dense_kernel": "B5", "slots_kernel": "B6",
     "ray_group_kernel": "B7", "uniforms_kernel": "threefry",
     "light_pdf_flat_kernel": "K1", "shade_gather_kernel": "K2",
-    "shade_sample_kernel": "K3", "shade_finish_kernel": "K4",
+    "shade_sample_kernel": "K3", "shade_finish_kernel": "K4", "worklist_kernel": "K5",
 }
 
 
