@@ -147,6 +147,7 @@ from unittest import mock
 
 import torch
 
+from tpu_pathtracer_torch import kernels
 from tpu_pathtracer_torch.utils.profiling import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -258,7 +259,6 @@ def phase_device():
 
 
 def phase_build():
-    from tpu_pathtracer_torch import kernels
 
     t0 = time.perf_counter()
     info = kernels.build()
@@ -270,28 +270,6 @@ def phase_build():
         emit("build", library=name, built=lib["built"], nvcc_seconds=round(lib["seconds"], 3),
              ptxas=ptxas)
     emit("build", libraries=len(info), wall_seconds=round(wall, 3))
-
-
-def counters():
-    """Kernel name -> the wrapper that counts its launches."""
-    from tpu_pathtracer_torch.models import pathtracer as pt
-    from tpu_pathtracer_torch.ops import chunk_intersect as ci
-    from tpu_pathtracer_torch.ops import intersect, rng
-
-    return {"b1": ci.tile_chunk_activity, "b2": ci.run_items, "b3": ci.run_light_pdf,
-            "b4": ci.nearest_box_ids, "b5": ci.run_dense, "b6": ci.run_slots,
-            "b7": ci.ray_group_bools, "rng": rng.lane_uniforms_key,
-            "k1": intersect.light_pdf_flat, "k2": pt.hit_info, "k3": pt.shade_sample,
-            "k4": pt.shade_finish, "k5": ci.worklist_pass}
-
-
-def reset_launches():
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def read_launches():
-    return {name: fn.launches for name, fn in counters().items()}
 
 
 def make_inputs(tmp, lit_banners=False):
@@ -352,7 +330,6 @@ def bounce_rays(scene, config, stride=1):
 def check_b1(rays_name, mode, args):
     """One B1 launch against its twin on the same inputs: m8, ent and (when
     asked) sub_ent exactly equal.  Returns the max abs error of ent."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     mk, ek, sk = kernels.activity(*args)
@@ -434,7 +411,6 @@ def worklists(scene, o, d):
 def b2_kernel(*args):
     """``kernels.items`` on B2's twin's arguments, with the unit prefix sum
     its wrapper passes (``ci.item_unit_offsets``)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     counts, masks, _, group, n_sub = args[5:]
@@ -625,7 +601,6 @@ def phase_b5(scene, rays_sets):
     atrium's primaries and secondaries ([128, 54] words), and bit-equal
     across two runs (its atomics take a minimum, whose result does not
     depend on their order).  Returns (max abs error, timing args)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     worst, timing = 0.0, None
@@ -651,7 +626,6 @@ def phase_b6(scene, rays_sets):
     """B6 kernel vs its twin on the near-pass-1 and residual worklists of
     phase b2, bit-equal across two runs, and equal to B2's output on the
     same worklists (t and triangle).  Returns (max abs error, timing args)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     worst, timing = 0.0, None
@@ -688,7 +662,6 @@ def phase_b7(scene, rays_sets):
     """B7 kernel vs its twin: the per-ray group bits [256, 65,536] of the
     atrium's 2,048 padded chunks, exactly equal.  Returns (max abs
     difference, timing args)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     c = scene.chunk_aabb_min.shape[0]
@@ -726,12 +699,12 @@ def phase_modes(scene, rays_sets, brutes):
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     def run(o, d, **tuning):
-        reset_launches()
+        kernels.launches.clear()
         hit = ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min,
                                     scene.chunk_aabb_max, scene.woop_rows, EPS,
                                     tuning=IntersectTuning(**tuning))
         torch.cuda.synchronize()
-        return hit, read_launches()
+        return hit, kernels.launches.copy()
 
     cases = {
         "twopass": (dict(mode="twopass"), ("b1", "b6")),
@@ -834,7 +807,7 @@ def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None, 
     out = os.path.join(tmp, phase + ".ppm")
     err = io.StringIO()
     cli.render = tap
-    reset_launches()
+    kernels.launches.clear()
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
@@ -849,7 +822,7 @@ def phase_render(phase, label, path, tmp, needs, config=None, gen_seconds=None, 
         total = time.perf_counter() - t0
     finally:
         cli.render = render
-    launches = read_launches()
+    launches = kernels.launches.copy()
     if rc != 0:
         raise AssertionError(f"CLI failed (rc {rc}): {err.getvalue()[-2000:]}")
     metrics = json.loads(metrics)
@@ -961,14 +934,14 @@ def loops_in_turns(phase, label, render, order, unit):
 
     rows = {}
     for loop in order:
-        reset_launches()
+        kernels.launches.clear()
         r0, c0 = CapturedBlock.replays, CapturedBlock.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img, units = render(loop == "eager")
         secs = time.perf_counter() - t0
         rows.setdefault(loop, []).append(dict(
-            img=img, seconds=secs, units=units, launches=read_launches(),
+            img=img, seconds=secs, units=units, launches=kernels.launches.copy(),
             replays=CapturedBlock.replays - r0, captures=CapturedBlock.captures - c0))
     want = rows["eager"][0]["img"]
     for loop, runs in rows.items():
@@ -1077,7 +1050,6 @@ def phase_b4(scene, rays_sets):
     """B4 kernel vs its twin on the atrium's worklist-group boxes: ids
     exactly equal, entry distances equal, and no padding group returned.
     Returns (max abs error of the entry t, timing args)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     g_lo, g_hi = ci.group_boxes(scene.chunk_aabb_min, scene.chunk_aabb_max)
@@ -1130,7 +1102,6 @@ def phase_b3(scene, rays_sets):
     relative error <= 1e-5 on the non-zero sums (all terms are >= 0 and only
     the order of the sum differs), and the kernel bit-equal across two runs
     (no atomics).  Returns (max abs error, timing args)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     worst, timing = 0.0, None
@@ -1193,7 +1164,6 @@ def phase_light_pdf_flat(label, scene, rays_sets):
     alike), relative error <= 1e-5 on the non-zero values (every term is
     >= 0; only the order of a cluster's sum differs), the kernel bit-equal
     across two runs.  Returns (max abs error, non-zero values)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops.intersect import light_pdf_sum_flat
 
     worst, nonzero = 0.0, 0
@@ -1236,7 +1206,6 @@ def phase_shade_gather(label, scene, config, rays_sets):
     ``inside`` exact and every float of the record within 2 ulp of the
     twin's (the goal is 0: the same operations in the same order).  Returns
     (max abs error, largest ulp difference)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.models import pathtracer as pt
 
     worst, worst_ulp = 0.0, 0
@@ -1312,7 +1281,6 @@ def phase_shading(tmp, scene, rays_sets, field, env):
     its twin, and K1 beside the other route to the same sum: B3 with a full
     worklist (every tile, every cluster).  Returns (errs, ulp, times, work,
     b3 route ms)."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.config import RenderConfig
     from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
@@ -1426,7 +1394,6 @@ def check_chain(label, scene, config, rays_sets, seed):
     every output bit for bit.  Emits the lanes that differ per output and,
     where some do, the first ones' inputs and outputs.  Returns the number
     of lanes that differ."""
-    from tpu_pathtracer_torch import kernels
 
     bad = 0
     for name, (o, d) in rays_sets.items():
@@ -1487,7 +1454,7 @@ def shade_nodes(smap):
 
 def twin_chain():
     """A context in which ``bounce_step`` runs the twins of K3 and K4 on
-    the card (counted wrappers, no launch)."""
+    the card (no launch)."""
     from tpu_pathtracer_torch.models import pathtracer as pt
 
     def sample(*a):
@@ -1496,7 +1463,6 @@ def twin_chain():
     def finish(*a):
         return pt.shade_finish_plain(*a)
 
-    sample.launches = finish.launches = 0
     return mock.patch.multiple(pt, shade_sample=sample, shade_finish=finish)
 
 
@@ -1535,7 +1501,6 @@ def phase_shade_chain(tmp, scene, rays_sets, field, env):
     chain.  Returns {k3, k4: (ms, twin ms, bytes)} of the atrium."""
     import numpy as np
 
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.config import RenderConfig
     from tpu_pathtracer_torch.models import pathtracer as pt
 
@@ -1567,10 +1532,10 @@ def phase_shade_chain(tmp, scene, rays_sets, field, env):
 
     frames, names = {}, {}
     for variant in ("kernels", "eager", "twins"):
-        reset_launches()
+        kernels.launches.clear()
         img, smap, nm = chain_frame(scene, variant)
         frames[variant] = img
-        launches = read_launches()
+        launches = kernels.launches.copy()
         if smap is not None:
             per_iter, _ = shade_nodes(smap)
             names[variant] = nm
@@ -1651,12 +1616,12 @@ def phase_sort_keys(path, hint):
     out = {}
     for key in ("target", "cell", "dirhint"):
         stats = {}
-        reset_launches()
+        kernels.launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = render(scene, spp=SPP, seed=0, config=RenderConfig(sort_key=key), stats=stats)
         secs = time.perf_counter() - t0
-        launches = read_launches()
+        launches = kernels.launches.copy()
         emit("sort_keys", sort_key=key, seconds_render=secs, measured_rays=stats["measured_rays"],
              pixel_samples_per_s=W * H * SPP / secs,
              measured_mrays_per_s=stats["measured_rays"] / secs / 1e6,
@@ -1912,7 +1877,6 @@ def phase_renderer(path):
 
     import numpy as np
 
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.renderer import Renderer
 
     builds = []
@@ -1929,12 +1893,12 @@ def phase_renderer(path):
         frames, launches, secs = [], [], []
         for shift in (0.0, 0.6):
             r.look_at(eye=eye + np.array([shift, 0.0, 0.0]), target=eye + 10 * fwd)
-            reset_launches()
+            kernels.launches.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             frames.append(r.render(W, H, SPP, seed=0))
             secs.append(time.perf_counter() - t0)
-            launches.append(read_launches())
+            launches.append(kernels.launches.copy())
         same = tensors(r.scene) == ptrs
     finally:
         kernels.build = real_build
@@ -1982,12 +1946,12 @@ def phase_checkpoint(path, tmp, main_row):
     half, whole = os.path.join(tmp, "ck", "resumed.npz"), os.path.join(tmp, "ck", "whole.npz")
     every = SPP // 4
     secs = {}
-    reset_launches()
+    kernels.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     render_with_checkpoints(scene, SPP // 2, 0, checkpoint_path=half, checkpoint_every=every)
     secs["first_half"] = time.perf_counter() - t0
-    launches = read_launches()
+    launches = kernels.launches.copy()
     with np.load(half) as z:
         keys, done = sorted(z.files), int(z["samples_done"])
     t0 = time.perf_counter()
@@ -2047,12 +2011,12 @@ def headline_main(env):
     env = {"HEADLINE_SIZE": str(HEADLINE_SIZE), **{k: str(v) for k, v in env.items()}}
     with mock.patch.dict(os.environ, env), mock.patch.object(run_headline,
                                                              "render_with_checkpoints", render):
-        reset_launches()
+        kernels.launches.clear()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             code = run_headline.main()
         secs = time.perf_counter() - t0
-        launches = read_launches()
+        launches = kernels.launches.copy()
     lines = out.getvalue().strip().splitlines()
     rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
     row = dict(rc=code, ckpt=env["HEADLINE_CKPT"], progress=rows[:-1],
@@ -2250,22 +2214,22 @@ def phase_sharded(path, tmp, main_row, engine_row):
         backend = dist.get_backend()
         mesh = make_mesh()
         stats = {}
-        reset_launches()
+        kernels.launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sharded = render_sharded(scene, SPP, 0, mesh=mesh, stats=stats)
         t_sharded = time.perf_counter() - t0
-        launches = read_launches()
+        launches = kernels.launches.copy()
         t0 = time.perf_counter()
         multi = render_multihost(scene, SPP, 0, checkpoint_path=os.path.join(tmp, "ck", "mh.npz"),
                                  checkpoint_every=SPP // 2)
         t_multi = time.perf_counter() - t0
-        reset_launches()
+        kernels.launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scan = render_sharded(scene, engine_row["spp"], 0, config=engine_row["config"], mesh=mesh)
         t_scan = time.perf_counter() - t0
-        scan_launches = read_launches()
+        scan_launches = kernels.launches.copy()
     finally:
         dist.destroy_process_group()
     scan_same = bits_identical(scan, engine_row["hdr"])
@@ -2362,7 +2326,6 @@ def phase_rng():
     a launch's fixed cost (the intercept) from its cost a lane (the slope).
     Returns {form: (ms, plain ms, max abs error)} at 65,536 lanes and
     {form: (intercept ms, slope ms a lane)}."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import rng
 
     out, times = {}, {}
@@ -2404,7 +2367,7 @@ def render_loop(scene, spp, config, loop, seed=0):
     from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.models.graph import CapturedBlock
 
-    reset_launches()
+    kernels.launches.clear()
     pt.persistent_accum.iterations = 0
     r0, c0 = CapturedBlock.replays, CapturedBlock.captures
     stats = {}
@@ -2413,7 +2376,7 @@ def render_loop(scene, spp, config, loop, seed=0):
     img = pt.render(scene, spp=spp, seed=seed, config=config, stats=stats, eager=loop == "eager")
     secs = time.perf_counter() - t0
     return dict(img=img, rays=stats.get("measured_rays"), loop=stats.get("loop"), seconds=secs,
-                iterations=pt.persistent_accum.iterations, launches=read_launches(),
+                iterations=pt.persistent_accum.iterations, launches=kernels.launches.copy(),
                 replays=CapturedBlock.replays - r0, captures=CapturedBlock.captures - c0)
 
 
@@ -2557,11 +2520,11 @@ def phase_graph(path, lit_path, field, env):
     c0 = CapturedBlock.captures
     for shift in (0.0, 0.6):
         r.look_at(eye=eye + np.array([shift, 0.0, 0.0]), target=eye + 10 * fwd)
-        reset_launches()
+        kernels.launches.clear()
         t0 = time.perf_counter()
         got = r.render(W, H, 4, seed=0)
         secs = time.perf_counter() - t0
-        launches = read_launches()
+        launches = kernels.launches.copy()
         cam_scene = dataclasses.replace(r.scene, camera=r.scene.camera.with_dims(W, H))
         want = pt.render(cam_scene, spp=4, seed=0, config=r.config, eager=True)
         same = bool(np.array_equal(got, want))
@@ -2593,11 +2556,9 @@ def cascade_worklists(scene, o, d, ray_tile):
                       tested.clone()))
         return out
 
-    spy.launches = real.launches  # the wrapper counts on the name it is called by
     with mock.patch.object(ci, "worklist_pass", spy):
         ci.closest_hit_chunks(o, d, scene.chunk_woop, scene.chunk_aabb_min, scene.chunk_aabb_max,
                               scene.woop_rows, EPS, ray_tile=ray_tile)
-    real.launches = spy.launches
     return calls
 
 
@@ -2629,7 +2590,6 @@ def phase_worklist(scene, rays_sets):
     1,203 groups, 4 sub-tiles) and at 4,500 groups, the keys then in global
     scratch.  Timed beside the twin on the secondaries' first near pass and
     residual.  Returns (ms, twin ms, bytes) of the first near pass."""
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -2682,7 +2642,6 @@ def phase_tile256(scene, brutes, rays_sets):
     512-ray tiles against 256 in turns (512, 256, 256, 512)."""
     import numpy as np
 
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.config import RenderConfig
     from tpu_pathtracer_torch.models import pathtracer as pt
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
@@ -2888,7 +2847,6 @@ def main(only=()):
     if only:
         return run_only(only)
     rng_times, rng_fits = phase_rng()
-    from tpu_pathtracer_torch import kernels
     from tpu_pathtracer_torch.models.pathtracer import RenderConfig
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
     from tpu_pathtracer_torch.scene import fixtures
@@ -3001,11 +2959,11 @@ def main(only=()):
     # Each kernel's launches on its own path: B1/B2 the main render, B3 the
     # lit-banner render, B4 the "target" key, B5 the "dense" render, B6 the
     # "twopass" render, B7 the "bins" render.
-    launches = {"b1": main_row["launches_b1"], "b2": main_row["launches_b2"],
-                "b3": lit_row["launches_b3"], "b4": sort_rows["target"]["b4"],
-                "b5": mode_rows["dense"]["launches_b5"],
-                "b6": mode_rows["twopass"]["launches_b6"],
-                "b7": mode_rows["bins"]["launches_b7"]}
+    launches = {"b1": main_row.get("launches_b1", 0), "b2": main_row.get("launches_b2", 0),
+                "b3": lit_row.get("launches_b3", 0), "b4": sort_rows["target"]["b4"],
+                "b5": mode_rows["dense"].get("launches_b5", 0),
+                "b6": mode_rows["twopass"].get("launches_b6", 0),
+                "b7": mode_rows["bins"].get("launches_b7", 0)}
     errs = {"b1": b1_err, "b2": b2_err, "b3": b3_err, "b4": b4_err, "b5": b5_err,
             "b6": b6_err, "b7": b7_err}
     table = [
@@ -3037,7 +2995,7 @@ def main(only=()):
         "source": "tpu_pathtracer_torch/csrc/rng_kernels.cu",
         "replaces": "tpu_pathtracer/ops/rng.py:87",
         "replaces_note": "lane_uniforms, fused by XLA on the TPU: no Pallas kernel",
-        "launches": main_row["launches_rng"], "max_abs_err": rng_err, "ms": ms,
+        "launches": main_row.get("launches_rng", 0), "max_abs_err": rng_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "share": bound_ms / ms, "library_ms": None,
         "library_note": "none: no PyTorch call computes threefry-2x32 counter draws",
@@ -3050,7 +3008,8 @@ def main(only=()):
         ms, plain_ms = times_k[k]
         rows.append({
             "name": name, "route": "cuda", "source": "tpu_pathtracer_torch/csrc/shade_kernels.cu",
-            "replaces": replaces, "replaces_note": note, "launches": main_row[f"launches_{k}"],
+            "replaces": replaces, "replaces_note": note,
+            "launches": main_row.get(f"launches_{k}", 0),
             "max_abs_err": errs_k[k], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
             "library_note": library, "work": {"ops": ops, "bytes": n_bytes},
@@ -3060,7 +3019,8 @@ def main(only=()):
         bound_ms, bound_by = bound({"fp32": (0, 128)}, n_bytes)
         rows.append({
             "name": name, "route": "cuda", "source": "tpu_pathtracer_torch/csrc/shade_kernels.cu",
-            "replaces": replaces, "replaces_note": note, "launches": main_row[f"launches_{k}"],
+            "replaces": replaces, "replaces_note": note,
+            "launches": main_row.get(f"launches_{k}", 0),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "share": bound_ms / ms, "library_ms": None,
             "library_note": library, "work": {"bytes": n_bytes}})
@@ -3070,7 +3030,7 @@ def main(only=()):
         "source": "tpu_pathtracer_torch/csrc/chunk_kernels.cu",
         "replaces": "tpu_pathtracer/ops/pallas_intersect.py:907",
         "replaces_note": "closest_hit_chunks' jnp glue around the Pallas kernels, fused by XLA",
-        "launches": main_row["launches_k5"], "max_abs_err": 0.0, "ms": k5_ms,
+        "launches": main_row.get("launches_k5", 0), "max_abs_err": 0.0, "ms": k5_ms,
         "plain_ms": k5_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "share": bound_ms / k5_ms, "library_ms": None,
         "library_note": "none: group stats, a per-tile sort, packing and a prefix sum in one pass",

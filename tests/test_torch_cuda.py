@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_pathtracer_torch import kernels
 from tpu_pathtracer_torch.models.pathtracer import add_rows
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
@@ -100,7 +101,7 @@ def test_torch_worklist_kernel_equals_twin(shape, with_cbits):
     cbits = None if cbits is None else cbits.cuda()
     tested_k = torch.zeros((t_tiles, cg), dtype=torch.bool, device="cuda")
     tested_p = tested_k.clone()
-    launches = ci.worklist_pass.launches
+    launches = kernels.launches["k5"]
     caps = worklist_caps(cg)
     for m8, cap in zip(m8s, caps):
         gate = cap < cg
@@ -110,7 +111,7 @@ def test_torch_worklist_kernel_equals_twin(shape, with_cbits):
             assert (g is None) == (w is None) and (g is None or torch.equal(g, w)), (name, cap)
         assert torch.equal(tested_k, tested_p), cap
         assert int(got.counts.max()) == cap or cap == cg
-    assert ci.worklist_pass.launches == launches + len(caps)
+    assert kernels.launches["k5"] == launches + len(caps)
 
 
 @pytest.mark.cuda
@@ -131,9 +132,9 @@ def test_torch_threefry_kernel_equals_twin():
                  (*rng.key_words(seed), smp, rng.JITTER_DEPTH, pix, 2),
                  (*rng.fold_in(0, 7, 3), 5, 0, pix, 7),
                  (0, 99, torch.tensor(2**33 + 3, device="cuda"), 4, pix, 9)):
-        launches = rng.lane_uniforms_key.launches
+        launches = kernels.launches["rng"]
         got = rng.lane_uniforms_key(*args)
-        assert rng.lane_uniforms_key.launches == launches + 1
+        assert kernels.launches["rng"] == launches + 1
         want = rng.lane_uniforms_key_plain(*args)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -224,9 +225,9 @@ def test_torch_graph_loop_alternates_chunk_widths(tmp_path):
     for scene, config in scenes + scenes:
         want_stats, got_stats = {}, {}
         want = pt.render(scene, spp=1, seed=2, config=config, stats=want_stats, eager=True)
-        slots = ci.run_slots.launches
+        slots = kernels.launches["b6"]
         got = pt.render(scene, spp=1, seed=2, config=config, stats=got_stats)
-        assert got_stats["loop"] == "graph" and ci.run_slots.launches > slots
+        assert got_stats["loop"] == "graph" and kernels.launches["b6"] > slots
         assert np.array_equal(got, want)
         assert got_stats["measured_rays"] == want_stats["measured_rays"]
     assert CapturedBlock.captures == captures + 2

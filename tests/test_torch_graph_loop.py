@@ -18,6 +18,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 from tpu_pathtracer.ops import rng as jrng
+from tpu_pathtracer_torch import kernels
 from tpu_pathtracer_torch.config import IntersectTuning, RenderConfig
 from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
@@ -247,26 +248,51 @@ def test_torch_tensor_key_threefry_equals_jax(seed):
 
 
 def test_torch_graph_replays_count_every_kernel_wrapper():
-    """Every kernel wrapper with a ``launches`` counter is one that a graph
-    replay adds its captured launches to (``models.graph.counted_wrappers``),
-    so the counters read the launches the card ran, graphed or not."""
-    from tpu_pathtracer_torch.models import graph
-    from tpu_pathtracer_torch.ops import intersect
+    """Every launch is counted in one place, ``kernels.launches``, which a
+    graph replay adds its captured launches to: each launcher of
+    ``kernels.py`` counts under one name of the kernel table, the thirteen
+    names between them, no module of the port keeps a ``launches`` counter
+    of its own, and ``models/graph.py`` (below the models) imports nothing
+    of ``ops`` or ``models``."""
+    import ast
+    import importlib
+    import pkgutil
 
-    counted = {fn for mod in (ci, intersect, trng, pt) for fn in vars(mod).values()
-               if callable(fn) and hasattr(fn, "launches")}
-    assert ci.worklist_pass in counted
-    assert counted == set(graph.counted_wrappers())
+    import tpu_pathtracer_torch
+
+    with open(kernels.__file__) as f:
+        tree = ast.parse(f.read())
+    counted = {}
+    for fn in tree.body:
+        if isinstance(fn, ast.FunctionDef):
+            for call in ast.walk(fn):
+                if isinstance(call, ast.Call) and getattr(call.func, "id", None) == "_launched":
+                    counted.setdefault(fn.name, []).append(call.args[2].value)
+    assert all(len(names) == 1 for names in counted.values()), counted
+    assert sorted(n for (n,) in counted.values()) == sorted(
+        [f"b{i}" for i in range(1, 8)] + ["rng"] + [f"k{i}" for i in range(1, 6)])
+    modules = [importlib.import_module(m.name) for m in pkgutil.walk_packages(
+        tpu_pathtracer_torch.__path__, "tpu_pathtracer_torch.") if not m.name.endswith("__main__")]
+    assert kernels in modules and pt in modules and ci in modules
+    keeping = [(mod.__name__, name) for mod in modules for name, v in vars(mod).items()
+               if name == "launches" or (callable(v) and hasattr(v, "launches"))]
+    assert keeping == [("tpu_pathtracer_torch.kernels", "launches")]
+    from tpu_pathtracer_torch.models import graph
+
+    with open(graph.__file__) as f:
+        imports = [(n.level, n.module or "", [a.name for a in n.names])
+                   for n in ast.walk(ast.parse(f.read())) if isinstance(n, ast.ImportFrom)]
+    assert imports and not [i for i in imports if i[0] == 1 or (i[0] and (
+        i[1].split(".")[0] in ("ops", "models") or {"ops", "models"} & set(i[2])))]
 
 
 def test_torch_threefry_wrapper_dispatch():
     """The threefry wrapper takes its twin for CPU tensors and counts no
     launch; any device other than the CPU or CUDA raises."""
-    trng.lane_uniforms_key.launches = 0
     pix = torch.arange(64, dtype=torch.int32)
     got = trng.lane_uniforms_key(0, torch.tensor(3), 2, 1, pix, 4)
     assert torch.equal(got, trng.lane_uniforms_key_plain(0, 3, 2, 1, pix, 4))
-    assert trng.lane_uniforms_key.launches == 0
+    assert kernels.launches["rng"] == 0
     with pytest.raises(RuntimeError, match="no kernel"):
         trng.lane_uniforms_key(0, 3, 2, 1, torch.zeros(64, dtype=torch.int32, device="meta"), 4)
 

@@ -20,6 +20,7 @@ from tpu_pathtracer.utils.testscenes import GltfBuilder, quad
 from tpu_pathtracer_torch.bridge import scene_from_arrays
 from tpu_pathtracer_torch.models import pathtracer as pt
 from tpu_pathtracer_torch.ops import chunk_intersect as ci
+from tpu_pathtracer_torch.ops.intersect import light_pdf_sum_flat
 from tpu_pathtracer_torch.utils.image import quantize_u8
 from test_torch_render import _assert_fp_noise
 from test_torch_scene import jax_scene_arrays
@@ -107,8 +108,8 @@ def test_torch_light_pdf_twin_sums_in_worklist_order():
     for tile, clusters in ((0, (3, 0, 5)), (1, (7,))):
         rows = slice(128 * tile, 128 * (tile + 1))
         for c in clusters:
-            want[rows] += pt.light_pdf_sum_flat(_t(o)[rows], _t(d)[rows], cw[c:c + 1],
-                                                ck[c:c + 1], 1, EPS)
+            want[rows] += light_pdf_sum_flat(_t(o)[rows], _t(d)[rows], cw[c:c + 1],
+                                             ck[c:c + 1], 1, EPS)
     assert (want > 0).sum() > 10
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-9)
 

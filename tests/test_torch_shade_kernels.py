@@ -377,14 +377,14 @@ def test_torch_shading_kernels_dispatch_cpu_to_twins(monkeypatch):
     monkeypatch.setattr(kernels, "library", refuse)
     o, d, cw, ck, count = _light_case(2)
     args = [torch.from_numpy(a) for a in (o, d, cw, ck)]
-    k1, k2 = tisect.light_pdf_flat.launches, pt.hit_info.launches
+    k1, k2 = kernels.launches["k1"], kernels.launches["k2"]
     assert torch.equal(tisect.light_pdf_flat(*args, count, EPS),
                        tisect.light_pdf_sum_flat(*args, count, EPS))
     _, tscene, _, thit, dd = _shade_case(5, (True,) * 4)
     got = pt.hit_info(tscene, torch.from_numpy(dd), thit, RenderConfig())
     want = pt.hit_info_plain(tscene, torch.from_numpy(dd), thit, RenderConfig())
     assert all(torch.equal(got[k], want[k]) for k in FIELDS + ("inside",))
-    assert (tisect.light_pdf_flat.launches, pt.hit_info.launches) == (k1, k2)
+    assert (kernels.launches["k1"], kernels.launches["k2"]) == (k1, k2)
 
 
 def test_torch_shading_kernels_refuse_other_devices():
@@ -423,7 +423,7 @@ def test_torch_shade_chain_dispatch_cpu_to_twins(tmp_path, monkeypatch):
 
     ts, config, x = _cornell_chain(tmp_path)
     monkeypatch.setattr(kernels, "library", refuse)
-    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    n3, n4 = kernels.launches["k3"], kernels.launches["k4"]
     args = (x["o"], x["d"], x["throughput"], x["radiance"], x["alive"], x["draws"], x["hit"],
             x["info"])
     got = pt.shade_sample(ts, config, *args)
@@ -438,7 +438,7 @@ def test_torch_shade_chain_dispatch_cpu_to_twins(tmp_path, monkeypatch):
     step = pt.bounce_step(ts, config, x["o"], x["d"], x["throughput"], x["radiance"], x["alive"],
                           x["draws"])
     assert all(_bits_equal(a, b) for a, b in zip(step, want[:3] + (radiance,) + want[3:]))
-    assert (pt.shade_sample.launches, pt.shade_finish.launches) == (n3, n4)
+    assert (kernels.launches["k3"], kernels.launches["k4"]) == (n3, n4)
 
 
 def test_torch_shade_chain_refuses_other_devices():
@@ -559,9 +559,9 @@ def test_torch_light_pdf_flat_kernel_equals_twin(n_clusters):
     _needs_card()
     o, d, cw, ck, count = _light_case(n_clusters)
     args = [torch.from_numpy(a).cuda() for a in (o, d, cw, ck)]
-    n0 = tisect.light_pdf_flat.launches
+    n0 = kernels.launches["k1"]
     got = tisect.light_pdf_flat(*args, count, EPS)
-    assert tisect.light_pdf_flat.launches == n0 + 1
+    assert kernels.launches["k1"] == n0 + 1
     want = tisect.light_pdf_sum_flat(*args, count, EPS)
     nz = want != 0
     assert nz.sum() > R // 4 and torch.equal(got != 0, nz)
@@ -586,9 +586,9 @@ def test_torch_shade_gather_kernel_equals_twin(slots, pool):
                                      for f in dataclasses.fields(tscene.atlas)}))
     hit = tisect.Hit(*(x.cuda() for x in thit))
     dd = torch.from_numpy(d).cuda()
-    n0 = pt.hit_info.launches
+    n0 = kernels.launches["k2"]
     got = pt.hit_info(scene, dd, hit, RenderConfig())
-    assert pt.hit_info.launches == n0 + 1
+    assert kernels.launches["k2"] == n0 + 1
     want = pt.hit_info_plain(scene, dd, hit, RenderConfig())
     assert torch.equal(got["inside"], want["inside"])
     for key in FIELDS:
@@ -653,7 +653,7 @@ def test_torch_shade_chain_kernels_equal_twins(tmp_path, name):
     x = _on_card(scene, config, _chain_rays(scene.to("cpu"), config, seed=5))
     args = (x["o"], x["d"], x["throughput"], x["radiance"], x["alive"], x["draws"], x["hit"],
             x["info"])
-    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    n3, n4 = kernels.launches["k3"], kernels.launches["k4"]
     got = pt.shade_sample(scene, config, *args)
     want = pt.shade_sample_plain(scene, config, *args)
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
@@ -664,7 +664,7 @@ def test_torch_shade_chain_kernels_equal_twins(tmp_path, name):
     got = pt.shade_finish(scene, config, *args)
     want = pt.shade_finish_plain(scene, config, *args)
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
-    assert (pt.shade_sample.launches, pt.shade_finish.launches) == (n3 + 1, n4 + 1)
+    assert (kernels.launches["k3"], kernels.launches["k4"]) == (n3 + 1, n4 + 1)
 
 
 def _twin_chain(monkeypatch):
@@ -675,7 +675,6 @@ def _twin_chain(monkeypatch):
     def finish(*a):
         return pt.shade_finish_plain(*a)
 
-    sample.launches = finish.launches = 0
     monkeypatch.setattr(pt, "shade_sample", sample)
     monkeypatch.setattr(pt, "shade_finish", finish)
 
@@ -697,10 +696,10 @@ def test_torch_shade_chain_frames_on_card(tmp_path, monkeypatch, engine):
     elif engine == "bins":
         config = dataclasses.replace(config, tuning=IntersectTuning(mode="bins"))
     pt.clear_compiled_loops()
-    n3, n4 = pt.shade_sample.launches, pt.shade_finish.launches
+    n3, n4 = kernels.launches["k3"], kernels.launches["k4"]
     frame = pt.render(scene, spp=2, seed=9, config=config)
     eager = pt.render(scene, spp=2, seed=9, config=config, eager=True)
-    assert pt.shade_sample.launches > n3 and pt.shade_finish.launches > n4
+    assert kernels.launches["k3"] > n3 and kernels.launches["k4"] > n4
     with monkeypatch.context() as m:
         _twin_chain(m)
         pt.clear_compiled_loops()

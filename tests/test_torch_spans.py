@@ -162,6 +162,41 @@ def test_torch_engine_call_counts_sum_to_iterations(tmp_path, eager):
         assert [s.name for s in _after(mark) if s.parent == c.id] == ["call_start", "drain"]
 
 
+@pytest.mark.parametrize("frame_pool", [True, False])
+@pytest.mark.parametrize("entry", ["render", "render_with_checkpoints"])
+def test_torch_engine_calls_carry_the_counts_the_engine_returned(tmp_path, monkeypatch, entry,
+                                                                  frame_pool):
+    """Each ``engine_call`` span of both frame loops carries ``rays``,
+    ``b2_units`` and ``b1_tests`` equal to the counts its
+    ``persistent_accum`` call returned (through ``render_chunk_persistent``),
+    and the measured rays are their sum."""
+    path = fixtures.make_atrium_gltf(str(tmp_path / "a" / "atrium.gltf"), detail=0,
+                                     textured=False)
+    scene = parse_gltf_scene(path, 1.0)
+    scene = dataclasses.replace(scene, camera=scene.camera.with_dims(32, 32))
+    cfg = RenderConfig(spp_per_pass=1, rays_per_batch=512, frame_pool=frame_pool)
+    real, returned = pt.render_chunk_persistent, []
+
+    def spy(*args, **kwargs):
+        rad, counts = real(*args, **kwargs)
+        returned.append(counts.tolist())
+        return rad, counts
+
+    monkeypatch.setattr(pt, "render_chunk_persistent", spy)
+    stats = {}
+    with span("test") as mark:
+        if entry == "render":
+            pt.render(scene, spp=2, seed=5, config=cfg, stats=stats)
+        else:
+            render_with_checkpoints(scene, spp=2, seed=5, config=cfg, stats=stats)
+    calls = _after(mark, "engine_call")
+    # Two passes of the frame as one pool, or of two chunks of 512 pixels.
+    assert len(calls) == len(returned) == (2 if frame_pool else 4)
+    assert [[c.counts[k] for k in ("rays", "b2_units", "b1_tests")] for c in calls] == returned
+    assert all(b2 > 0 and b1 > 0 for _, b2, b1 in returned)
+    assert stats["measured_rays"] == sum(r for r, _, _ in returned)
+
+
 def test_torch_stage_map_assigns_every_node_once():
     """With a fake node counter: every node of the graph lands in exactly
     one row, the innermost stage open when it was captured ("block"

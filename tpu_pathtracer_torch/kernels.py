@@ -9,20 +9,21 @@ current stream.  Nothing here runs at import time, so the module imports on
 machines without CUDA.
 
 The functions below check device, dtype, shape and contiguity, allocate the
-outputs, launch, and raise when the launch reports a CUDA error.  The
-dispatching wrappers with their plain twins and launch counters live in
-``ops/chunk_intersect.py`` (B1-B7), ``ops/rng.py`` (the threefry draws),
-``ops/intersect.py`` (K1, the flat light-cluster pdf) and
+outputs, launch, raise when the launch reports a CUDA error, and count the
+launch in ``launches`` under the kernel's name in the kernel table (b1-b7,
+rng, k1-k5).  The dispatching wrappers with their plain twins live in
+``ops/chunk_intersect.py`` (B1-B7, K5), ``ops/rng.py`` (the threefry
+draws), ``ops/intersect.py`` (K1, the flat light-cluster pdf) and
 ``models/pathtracer.py`` (K2, ``hit_info``'s row gather and texture fetch;
 K3 and K4, the bounce's sampling / BSDF chain before and after the light
-pdf); K5, a cascade pass's worklist, is in ``ops/chunk_intersect.py`` too.
-No launch makes a runtime call that a CUDA graph capture refuses: B2's and
-B6's persistent grids (and B6's shared-memory attribute) are set at their
-first launch and kept.
+pdf); a twin counts nothing.  No launch makes a runtime call that a CUDA
+graph capture refuses: B2's and B6's persistent grids (and B6's
+shared-memory attribute) are set at their first launch and kept.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -43,6 +44,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+# Launches of each kernel by its name in the kernel table, since the last
+# ``launches.clear()``; a replayed CUDA graph adds the launches its capture
+# recorded (``models.graph.CapturedBlock``).
+launches: collections.Counter = collections.Counter()
+
 # Library name -> its C entry points (ctypes argument types).
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 LIBRARIES = {
@@ -156,9 +162,12 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _launched(rc: int, name: str, kernel: str) -> None:
+    """Raise when launch ``name`` reported a CUDA error, else count it in
+    ``launches`` under ``kernel``, its name in the kernel table."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[kernel] += 1
 
 
 def made_once(cache: dict, key, x: torch.Tensor, make):
@@ -218,7 +227,7 @@ def activity(rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, wan
             nwords, r, c, ray_tile, n_sub, float(min_dst), _ptr(m8), _ptr(ent),
             _ptr(sub), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "activity")
+    _launched(rc, "activity", "b1")
     return m8, ent, sub
 
 
@@ -258,7 +267,7 @@ def items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
             float(min_dst), _ptr(keys), _ptr(t_out), _ptr(tri_out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "items")
+    _launched(rc, "items", "b2")
     return t_out, tri_out
 
 
@@ -305,7 +314,7 @@ def worklist(m8, ent, tested, cap, group, n_sub, cbits, want_gate):
             _ptr(counts), _ptr(masks), _ptr(offsets), _ptr(gate),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "worklist")
+    _launched(rc, "worklist", "k5")
     return ga, ge, idx, counts, masks, offsets, gate
 
 
@@ -339,7 +348,7 @@ def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
             r, cap, cw, ray_tile, PDF_SEGMENT, float(min_dst), _ptr(partial), _ptr(out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "light_pdf")
+    _launched(rc, "light_pdf", "b3")
     return out
 
 
@@ -359,7 +368,7 @@ def nearest(rays, box_min, box_max, min_dst):
             _ptr(rays), _ptr(box_min), _ptr(box_max), r, g, float(min_dst),
             _ptr(t_out), _ptr(id_out), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "nearest")
+    _launched(rc, "nearest", "b4")
     return t_out, id_out
 
 
@@ -395,7 +404,7 @@ def dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
             c, nwords, cw, float(min_dst), _ptr(keys), _ptr(t_out), _ptr(tri_out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "dense")
+    _launched(rc, "dense", "b5")
     return t_out, tri_out
 
 
@@ -440,7 +449,7 @@ def slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_
             _ptr(offsets), r, t_tiles, cap, n_words, group, n_sub, cw, float(min_dst),
             _ptr(keys), _ptr(t_out), _ptr(tri_out), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "slots")
+    _launched(rc, "slots", "b6")
     return t_out, tri_out
 
 
@@ -459,7 +468,7 @@ def ray_groups(rays, cmin, cmax, min_dst, group):
             _ptr(rays), _ptr(cmin), _ptr(cmax), r, c // group, group, float(min_dst),
             _ptr(out), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "ray_groups")
+    _launched(rc, "ray_groups", "b7")
     return out
 
 
@@ -513,7 +522,7 @@ def uniforms(k0, k1, sample, depth, pixel, n_draws: int, sample_base=0, pixel_ba
             _ptr(k0_s), _ptr(k1_s), k0_c, k1_c, *lanes, r, n_draws, _ptr(out),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "uniforms")
+    _launched(rc, "uniforms", "rng")
     return out
 
 
@@ -544,7 +553,7 @@ def light_pdf_flat(origin, direction, cluster_woop, cluster_k, light_count: int,
             _ptr(origin), _ptr(direction), _ptr(cluster_woop), _ptr(cluster_k), r, c, cw,
             float(min_dst), inv_count, _ptr(out), torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "light_pdf_flat")
+    _launched(rc, "light_pdf_flat", "k1")
     return out
 
 
@@ -584,7 +593,7 @@ def shade_gather(shade_attrs, tri, beta, gamma, direction, atlas, slots: int):
             _ptr(atlas.height), r, slots, _ptr(record), _ptr(inside),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "shade_gather")
+    _launched(rc, "shade_gather", "k2")
     return record, inside
 
 
@@ -630,7 +639,7 @@ def shade_sample(origin, direction, throughput, radiance, alive, draws, t, hit, 
             float(min_roughness), r, _ptr(pos), _ptr(new_dir), _ptr(rad), _ptr(flags),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "shade_sample")
+    _launched(rc, "shade_sample", "k3")
     return pos, new_dir, rad, flags
 
 
@@ -666,5 +675,5 @@ def shade_finish(origin, direction, throughput, tri, record, pos, new_dir, flags
             _ptr(o), _ptr(d), _ptr(thr), _ptr(moved), _ptr(hint),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "shade_finish")
+    _launched(rc, "shade_finish", "k4")
     return o, d, thr, moved, hint

@@ -14,30 +14,21 @@ back into them at the end of the block.  A capture that fails raises
 ``CaptureError``, which a caller's retry of failed executions re-raises.
 The eager first block and the capture are one ``capture`` span of the log
 (``utils/profiling.py``), and the capture records the graph's stage map.
+The capture launches nothing: the kernel launches it records leave
+``kernels.launches`` and are added back at every replay, so the counter
+holds the launches the card ran.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Callable, Dict, Optional
 
 import torch
 
+from .. import kernels
 from ..utils.profiling import span, stage_map
-
-
-def counted_wrappers() -> tuple:
-    """Every kernel wrapper with a ``launches`` counter: a replay adds the
-    launches the capture recorded, so the counters stay the launches the
-    card ran."""
-    from ..ops import chunk_intersect as ci
-    from ..ops import intersect, rng
-    from . import pathtracer
-
-    return (ci.tile_chunk_activity, ci.run_items, ci.run_light_pdf, ci.nearest_box_ids,
-            ci.run_dense, ci.run_slots, ci.ray_group_bools, ci.worklist_pass,
-            rng.lane_uniforms_key, intersect.light_pdf_flat, pathtracer.hit_info,
-            pathtracer.shade_sample, pathtracer.shade_finish)
 
 
 def capture_node_counter(stream: torch.cuda.Stream) -> Callable[[], int]:
@@ -82,7 +73,7 @@ class CapturedBlock:
         self.flag = None if more is None else torch.ones((), dtype=torch.bool, device=self.device)
         self.graph = None
         self.graph_id = None  # the stage map's id of the captured graph
-        self.per_replay = ()
+        self.per_replay = collections.Counter()  # kernel launches a replay runs
 
     def load(self, carries: Dict[str, torch.Tensor]) -> None:
         """Start from ``carries`` (copied into the captured tensors)."""
@@ -107,8 +98,7 @@ class CapturedBlock:
             with torch.cuda.stream(side):
                 self._block()  # the first block, run for real
             main.wait_stream(side)
-            wrappers = counted_wrappers()
-            before = [fn.launches for fn in wrappers]
+            before = kernels.launches.copy()
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph):
@@ -117,10 +107,8 @@ class CapturedBlock:
             except Exception as err:
                 raise CaptureError(f"CUDA graph capture failed: {err}") from err
         # The capture ran nothing: its launches count once per replay.
-        self.per_replay = tuple((fn, fn.launches - n) for fn, n in zip(wrappers, before)
-                                if fn.launches != n)
-        for fn, n in self.per_replay:
-            fn.launches -= n
+        self.per_replay = kernels.launches - before
+        kernels.launches.subtract(self.per_replay)
         self.graph, self.graph_id = graph, smap.graph
         CapturedBlock.captures += 1
 
@@ -134,6 +122,5 @@ class CapturedBlock:
         else:
             self.graph.replay()
             CapturedBlock.replays += 1
-            for fn, n in self.per_replay:
-                fn.launches += n
+            kernels.launches.update(self.per_replay)
         return None if self.flag is None else bool(self.flag)

@@ -50,13 +50,7 @@ from ..ops.chunk_intersect import (
     ray_sort_key_target,
     scene_bounds,
 )
-from ..ops.intersect import (  # noqa: F401  (light_pdf_sum_flat: K1's twin, kept importable here)
-    Hit,
-    closest_hit,
-    light_pdf_flat,
-    light_pdf_sum,
-    light_pdf_sum_flat,
-)
+from ..ops.intersect import Hit, closest_hit, light_pdf_flat, light_pdf_sum
 from ..ops.rng import (
     SOBOL_TAG_LIGHT,
     SOBOL_TAG_VNDF,
@@ -178,16 +172,12 @@ def hit_info(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) ->
             scene.shade_attrs, hit.tri.contiguous(), hit.beta.contiguous(),
             hit.gamma.contiguous(), direction.contiguous(), scene.atlas, slots,
         )
-        hit_info.launches += 1
         return dict(normal=rec[:, 0:3], shading_normal=rec[:, 3:6], inside=inside,
                     color=rec[:, 6:10], emission=rec[:, 10:13], metallic=rec[:, 13],
                     roughness=rec[:, 14], ior=rec[:, 15], record=rec)
     if direction.device.type == "cpu":
         return hit_info_plain(scene, direction, hit, config)
     raise RuntimeError(f"hit_info: no kernel for device {direction.device}")
-
-
-hit_info.launches = 0
 
 
 def hit_info_plain(scene: TriangleScene, direction, hit: Hit, config: RenderConfig) -> dict:
@@ -313,17 +303,12 @@ def shade_sample(scene: TriangleScene, config: RenderConfig, o, d, throughput, r
     if d.is_cuda:
         from .. import kernels
 
-        out = kernels.shade_sample(*shade_sample_args(scene, config, o, d, throughput, radiance,
-                                                      alive, draws, hit, info))
-        shade_sample.launches += 1
-        return out
+        return kernels.shade_sample(*shade_sample_args(scene, config, o, d, throughput, radiance,
+                                                       alive, draws, hit, info))
     if d.device.type == "cpu":
         return shade_sample_plain(scene, config, o, d, throughput, radiance, alive, draws,
                                   hit, info)
     raise RuntimeError(f"shade_sample: no kernel for device {d.device}")
-
-
-shade_sample.launches = 0
 
 
 def shade_sample_args(scene: TriangleScene, config: RenderConfig, o, d, throughput, radiance,
@@ -397,17 +382,12 @@ def shade_finish(scene: TriangleScene, config: RenderConfig, o, d, throughput, h
     if d.is_cuda:
         from .. import kernels
 
-        out = kernels.shade_finish(*shade_finish_args(scene, config, o, d, throughput, hit, info,
-                                                      pos, new_dir, flags, p_light))
-        shade_finish.launches += 1
-        return out
+        return kernels.shade_finish(*shade_finish_args(scene, config, o, d, throughput, hit, info,
+                                                       pos, new_dir, flags, p_light))
     if d.device.type == "cpu":
         return shade_finish_plain(scene, config, o, d, throughput, hit, info, pos, new_dir,
                                   flags, p_light)
     raise RuntimeError(f"shade_finish: no kernel for device {d.device}")
-
-
-shade_finish.launches = 0
 
 
 def shade_finish_args(scene: TriangleScene, config: RenderConfig, o, d, throughput, hit: Hit,
@@ -519,6 +499,8 @@ LOOP_ITERATIONS = 4
 GRAPH_CACHE = 4
 # The entries of the persistent loop's work carry (``ops.chunk_intersect.count_work``).
 WORK_COUNTS = ("b2_units", "b1_tests")
+# The counts ``persistent_accum`` returns: the rays traced, then the work.
+CALL_COUNTS = ("rays",) + WORK_COUNTS
 
 
 def engine_loop(config: RenderConfig, device, eager: bool = False) -> str:
@@ -768,8 +750,9 @@ def persistent_accum(
 ):
     """Persistent wavefront with path regeneration.  Work item w covers
     (pixel slot w % P, local sample w // P), P = pix_count or n_rays.
-    Returns ([rows, 3] radiance sum, [] int64 live lanes summed over
-    bounces = rays traced).
+    Returns ([rows, 3] radiance sum, [3] int64 counts on the device:
+    ``CALL_COUNTS``, the live lanes summed over bounces = rays traced, then
+    the work below).
 
     ``chunk_start``, ``seed``, ``sample_start``, ``w_total`` and
     ``pix_count`` are the JAX package's traced arguments: each may be a
@@ -783,10 +766,9 @@ def persistent_accum(
                (``CapturedBlock``): on CUDA the block is one CUDA graph,
                captured at the first call and replayed for every block,
                chunk, pass, seed and camera (the port of the JAX package's
-               jitted ``lax.while_loop``), and the launch counters of the
-               kernel wrappers go up by the launches a replay runs; a
-               capture that fails raises.  On the CPU the block runs as it
-               is.
+               jitted ``lax.while_loop``), and ``kernels.launches`` goes
+               up by the launches a replay runs; a capture that fails
+               raises.  On the CPU the block runs as it is.
 
     Both give the same frame and rays, bit for bit.  Running up to
     ``LOOP_ITERATIONS - 1`` iterations past the end changes nothing: after
@@ -799,16 +781,15 @@ def persistent_accum(
     The loop also counts, on the device, the intersector's work of every
     bounce into its ``work`` carry (``WORK_COUNTS``; ``count_work``): B2's
     units and B1's (tile, chunk) tests, over every launch the loop makes,
-    those past the end included.  ``persistent_accum.work`` holds the
-    newest call's ([2] int64 on the device, unread).
+    those past the end included.
 
     The call is an ``engine_call`` span of the log with ``lanes``,
     ``ray_tile`` (``intersect_tile``), ``chunks``, ``iterations`` and, on
     CUDA's graph loop, ``graph`` (its stage map's id); the caller attaches
-    ``rays``, ``b2_units`` and ``b1_tests`` where it reads them
-    (``attach_call_counts``).  Inside it: ``call_start`` (the buffers, the
-    inputs' load and the first carries) and ``drain`` (the iterations with
-    their host reads, and the capture at a body's first call)."""
+    the returned counts where it reads them (``attach_call_counts``).
+    Inside it: ``call_start`` (the buffers, the inputs' load and the first
+    carries) and ``drain`` (the iterations with their host reads, and the
+    capture at a body's first call)."""
     dev = scene.device
     pool_pix = n_rays if pix_count is None else pix_count
     rows = n_rays if accum_rows is None else accum_rows
@@ -827,8 +808,7 @@ def persistent_accum(
                     c = body.iteration(c)
                     persistent_accum.iterations += 1
             call.add(iterations=persistent_accum.iterations - it0)
-            persistent_accum.work = c["work"]
-            return body.accum[:rows], c["n_bounce"]
+            return body.accum[:rows], torch.cat([c["n_bounce"].reshape(1), c["work"]])
 
         with span("call_start"):
             scalars = _traced_scalars(dev, chunk_start, seed, sample_start, w_total, pool_pix)
@@ -849,35 +829,34 @@ def persistent_accum(
         if block.graph_id is not None:
             call.add(graph=block.graph_id)
         # Copies: the next call of this loop overwrites its buffers.
-        persistent_accum.work = block.carries["work"].clone()
-        return body.accum[:rows].clone(), block.carries["n_bounce"].clone()
+        carries = block.carries
+        return body.accum[:rows].clone(), torch.cat([carries["n_bounce"].reshape(1),
+                                                     carries["work"]])
 
 
 persistent_accum.iterations = 0
-persistent_accum.work = None
 
 
-def attach_call_counts(n_bounce: torch.Tensor) -> int:
-    """Read the newest engine call's rays (its ``n_bounce``) and work
-    (``persistent_accum.work``) in one host read, attach them to its
-    ``engine_call`` span as ``rays``, ``b2_units`` and ``b1_tests``, and
-    return the rays."""
-    rays, *work = torch.cat([n_bounce.reshape(1), persistent_accum.work]).tolist()
-    last("engine_call").add(rays=rays, **dict(zip(WORK_COUNTS, work)))
-    return rays
+def attach_call_counts(counts: torch.Tensor) -> int:
+    """Read the newest engine call's ``counts`` (``persistent_accum``'s) in
+    one host read, attach them to its ``engine_call`` span as ``rays``,
+    ``b2_units`` and ``b1_tests``, and return the rays."""
+    values = counts.tolist()
+    last("engine_call").add(**dict(zip(CALL_COUNTS, values)))
+    return values[0]
 
 
 def render_chunk_persistent(scene, chunk_start, seed, sample_start, n_rays: int, spp: int,
                             config: RenderConfig, pix_count=None, accum_rows: int | None = None,
                             *, eager: bool = False):
-    """Mean radiance over ``spp`` samples of one pixel pool, and the rays
-    traced (``eager``: see ``persistent_accum``)."""
+    """Mean radiance over ``spp`` samples of one pixel pool, and the call's
+    counts (``eager`` and the counts: see ``persistent_accum``)."""
     pool_pix = n_rays if pix_count is None else pix_count
-    acc, n_bounce = persistent_accum(
+    acc, counts = persistent_accum(
         scene, chunk_start, seed, sample_start, n_rays, pool_pix * spp, config,
         pix_count=pix_count, accum_rows=accum_rows, eager=eager,
     )
-    return acc / spp, n_bounce
+    return acc / spp, counts
 
 
 class _ScanTracer:
@@ -1039,14 +1018,99 @@ def pick_chunk(config: RenderConfig, npix: int) -> int:
     return chunk + ((-chunk) % RAY_TILE)
 
 
+@dataclasses.dataclass(frozen=True)
+class FramePlan:
+    """How a frame of ``npix`` pixels runs (``frame_plan``): engine calls of
+    ``lanes`` lanes, passes of ``pass_spp`` samples, chunks of ``pix_step``
+    pixels, and the engine (``persistent``, else the scan engine).  Under
+    ``frame_pool`` the whole frame is one persistent pool per pass, so the
+    drain tail is paid once per pass, not once per chunk."""
+
+    npix: int
+    lanes: int
+    pass_spp: int
+    pix_step: int
+    frame_pool: bool
+    persistent: bool
+
+    def chunks(self) -> list:
+        """(first pixel, pixels) of every chunk, in order."""
+        return [(start, min(self.pix_step, self.npix - start))
+                for start in range(0, self.npix, self.pix_step)]
+
+    def passes(self, done: int, spp: int) -> list:
+        """(first sample, samples) of every pass from sample ``done`` to
+        ``spp``, in order."""
+        return [(s0, min(self.pass_spp, spp - s0)) for s0 in range(done, spp, self.pass_spp)]
+
+    def pool(self, n: int) -> tuple:
+        """(pix_count, accum_rows) of the persistent call over a chunk of
+        ``n`` pixels (see ``persistent_accum``)."""
+        if self.frame_pool:
+            return n, n
+        return (None if n == self.lanes else n), None
+
+
+def frame_plan(config: RenderConfig, npix: int, pass_spp: int | None = None) -> FramePlan:
+    """The ``FramePlan`` of a frame of ``npix`` pixels under ``config``, with
+    passes of ``pass_spp`` samples (default ``config.spp_per_pass``; at
+    least 1)."""
+    lanes = pick_chunk(config, npix)
+    frame_pool = config.frame_pool and config.compaction and npix > lanes
+    return FramePlan(npix, lanes, max(1, pass_spp or config.spp_per_pass),
+                     npix if frame_pool else lanes, frame_pool, config.compaction)
+
+
+@contextlib.contextmanager
+def chunk_pass(scene: TriangleScene, config: RenderConfig, plan: FramePlan, start: int, n: int,
+               seed, sample_start: int, samples: int, *, eager: bool = False, phase=None):
+    """One (chunk, pass) of ``plan``: ``samples`` samples from
+    ``sample_start`` of the ``n`` pixels from ``start``, in one engine call
+    of ``plan.lanes`` lanes (the persistent engine over the chunk's pool,
+    ``plan.pool``; else the scan engine).  Yields (the mean radiance on the
+    device, [lanes or pool rows, 3], and the rays traced) inside a
+    ``chunk_pass`` span of the log (``start``, ``samples``), so that what
+    the caller does with them is part of it.  The rays and the work counts
+    are read in one host read right after the call and attached to its
+    ``engine_call`` span (``attach_call_counts``); the scan engine counts
+    no rays (0).  ``phase``, a context, is entered inside the span."""
+    with span("chunk_pass", start=start, samples=samples), phase or contextlib.nullcontext():
+        if plan.persistent:
+            pix_count, rows = plan.pool(n)
+            rad, counts = render_chunk_persistent(scene, start, seed, sample_start, plan.lanes,
+                                                  samples, config, pix_count=pix_count,
+                                                  accum_rows=rows, eager=eager)
+            yield rad, attach_call_counts(counts)
+        else:
+            yield render_chunk(scene, start, seed, sample_start, plan.lanes, samples, config,
+                               eager=eager), 0
+
+
+def background(scene: TriangleScene) -> np.ndarray:
+    """The frame of a scene with RAY_DEPTH 0: its background colour."""
+    bg = scene.bg_color.detach().cpu().numpy().astype(np.float32)
+    return np.broadcast_to(bg, (scene.camera.height, scene.camera.width, 3)).copy()
+
+
+def record_rays(stats: dict | None, config: RenderConfig, device, measured: int,
+                eager: bool = False) -> None:
+    """With the persistent engine, ``stats["measured_rays"]`` = ``measured``
+    and ``stats["loop"]`` the loop taken (``engine_loop``); the scan engine
+    leaves ``stats`` untouched, as in the JAX package."""
+    if stats is not None and config.compaction:
+        stats["measured_rays"] = measured
+        stats["loop"] = engine_loop(config, device, eager)
+
+
 def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig | None = None,
            progress: bool = False, timer=None, stats: dict | None = None, *,
            eager: bool = False) -> np.ndarray:
     """Full-frame render -> host numpy [H, W, 3] float32 HDR radiance.
 
-    Pixel chunks of ``pick_chunk`` lanes (or, with the persistent engine,
-    the whole frame as one pool under ``config.frame_pool``) run
-    ``spp_per_pass`` samples per engine call; ``progress`` prints one tick
+    The chunks and passes of ``frame_plan``: pixel chunks of ``pick_chunk``
+    lanes (or, with the persistent engine, the whole frame as one pool
+    under ``config.frame_pool``) run ``spp_per_pass`` samples per engine
+    call, a chunk's passes accumulated on the device; ``progress`` prints one tick
     per (chunk, pass) tile.  ``timer`` (a ``utils.profiling.PhaseTimer``)
     accumulates the JAX package's phases: "dispatch" (the engine calls; the
     eager loop also waits there at its per-iteration host reads) and
@@ -1068,51 +1132,34 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
     Either engine runs its loop as a CUDA graph on CUDA (eagerly under
     intersector mode "bins") and as the same body uncaptured on the CPU
     (``persistent_accum``, ``scan_accum``); ``eager=True`` runs the eager
-    loop instead.  Each (chunk, pass) is a ``chunk_pass`` span of the log
-    (``start``, its first pixel, and ``samples``) around its engine call,
-    whose ``rays`` and work counts it attaches at its read of them
-    (``attach_call_counts``), and each chunk's copy to the host a
-    ``readback`` span."""
+    loop instead.  Each (chunk, pass) runs through ``chunk_pass`` (its span,
+    its engine call and the call's counts), and each chunk's copy to the
+    host is a ``readback`` span."""
     config = config or RenderConfig()
     check_config(config)
     phase = timer.phase if timer is not None else (lambda _name: contextlib.nullcontext())
     h, w = scene.camera.height, scene.camera.width
     npix = h * w
     if scene.ray_depth == 0:
-        bg = scene.bg_color.cpu().numpy().astype(np.float32)
-        return np.broadcast_to(bg, (h, w, 3)).copy()
+        return background(scene)
     spp = max(int(spp), 1)
-    chunk = pick_chunk(config, npix)
-    pass_spp = max(1, min(config.spp_per_pass, spp))
-    frame_pool = config.frame_pool and config.compaction and npix > chunk
-    pix_step = npix if frame_pool else chunk
-    n_passes = -(-spp // pass_spp)
-    n_tiles = -(-npix // pix_step) * n_passes
+    plan = frame_plan(config, npix)
+    passes = plan.passes(0, spp)
+    n_tiles = len(plan.chunks()) * len(passes)
     ticked = -1  # the last tile whose progress tick was printed
 
     def run(start: int, n: int):
         nonlocal ticked
         acc = None
         rays = 0
-        for k, s0 in enumerate(range(0, spp, pass_spp)):
-            tile = start // pix_step * n_passes + k
+        for k, (s0, todo) in enumerate(passes):
+            tile = start // plan.pix_step * len(passes) + k
             if progress and tile > ticked:  # a retry does not tick again
                 print(f"{tile}/{n_tiles}     \r", end="", file=sys.stderr)
                 ticked = tile
-            todo = min(pass_spp, spp - s0)
-            with span("chunk_pass", start=start, samples=todo), phase("dispatch"):
-                if not config.compaction:
-                    rad = render_chunk(scene, start, seed, s0, chunk, todo, config, eager=eager)
-                else:
-                    if frame_pool:
-                        pc, ar = n, n
-                    else:
-                        pc, ar = (None if n == chunk else n), None
-                    rad, nb = render_chunk_persistent(
-                        scene, start, seed, s0, chunk, todo, config, pix_count=pc, accum_rows=ar,
-                        eager=eager,
-                    )
-                    rays += attach_call_counts(nb)
+            with chunk_pass(scene, config, plan, start, n, seed, s0, todo, eager=eager,
+                            phase=phase("dispatch")) as (rad, call_rays):
+                rays += call_rays
                 contrib = rad * float(todo)
                 acc = contrib if acc is None else acc + contrib
         with phase("device_wait_readback"), span("readback"):
@@ -1120,8 +1167,7 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
 
     out = np.zeros((npix, 3), dtype=np.float32)
     measured = 0
-    for start in range(0, npix, pix_step):
-        n = min(pix_step, npix - start)
+    for start, n in plan.chunks():
         for attempt in range(config.failure_retries + 1):
             try:
                 host, rays = run(start, n)
@@ -1135,7 +1181,5 @@ def render(scene: TriangleScene, spp: int, seed: int = 0, config: RenderConfig |
                       f"({attempt + 1}/{config.failure_retries})", file=sys.stderr)
         out[start:start + n] = host / spp
         measured += rays
-    if stats is not None and config.compaction:
-        stats["measured_rays"] = measured
-        stats["loop"] = engine_loop(config, scene.device, eager)
+    record_rays(stats, config, scene.device, measured, eager)
     return out.reshape(h, w, 3)

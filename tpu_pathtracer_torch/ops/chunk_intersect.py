@@ -56,8 +56,8 @@ The kernels are hand-written CUDA (``csrc/chunk_kernels.cu`` for B1/B2 and
 K5, ``csrc/light_sort_kernels.cu`` for B3/B4, ``csrc/mode_kernels.cu`` for
 B5-B7, bound in ``kernels.py``).  Each wrapper here has a plain-torch twin
 with the same signature; a CPU tensor goes to the twin, a CUDA tensor to
-the kernel, and anything else raises.  Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+the kernel, and anything else raises (``kernels.launches`` counts the
+kernel's launches).
 
 Not ported: the SMEM-budget machinery of the TPU's 1 MB scalar memory
 (``max_cap``, ``light_items``, the merged prefetch rows) and what it forced:
@@ -276,19 +276,14 @@ def tile_chunk_activity(
         from .. import kernels
 
         with stage("kernels"):
-            out = kernels.activity(
+            return kernels.activity(
                 rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub
             )
-        tile_chunk_activity.launches += 1
-        return out
     if rays.device.type == "cpu":
         return tile_chunk_activity_plain(
             rays, cmin, cmax, tbest, coarse_bits, min_dst, ray_tile, n_sub, want_sub
         )
     raise RuntimeError(f"tile_chunk_activity: no kernel for device {rays.device}")
-
-
-tile_chunk_activity.launches = 0
 
 
 def _gated_tests(words: torch.Tensor, columns: int) -> torch.Tensor:
@@ -464,7 +459,6 @@ def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
             out = kernels.items(
                 rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub, offsets
             )
-        run_items.launches += 1
     elif rays.device.type == "cpu":
         out = run_items_plain(
             rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
@@ -476,9 +470,6 @@ def run_items(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
     if seen is not None:
         seen["units"].append(offsets[-1:])
     return out
-
-
-run_items.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -524,15 +515,10 @@ def run_dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst):
         from .. import kernels
 
         with stage("kernels"):
-            out = kernels.dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
-        run_dense.launches += 1
-        return out
+            return kernels.dense(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
     if rays.device.type == "cpu":
         return run_dense_plain(rays, tmin0, tidx0, chunk_woop, bits, min_dst)
     raise RuntimeError(f"run_dense: no kernel for device {rays.device}")
-
-
-run_dense.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -554,19 +540,14 @@ def run_slots(rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group
         from .. import kernels
 
         with stage("kernels"):
-            out = kernels.slots(
+            return kernels.slots(
                 rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
             )
-        run_slots.launches += 1
-        return out
     if rays.device.type == "cpu":
         return run_slots_plain(
             rays, tmin0, tidx0, chunk_woop, idx, counts, masks, min_dst, group, n_sub
         )
     raise RuntimeError(f"run_slots: no kernel for device {rays.device}")
-
-
-run_slots.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -608,15 +589,10 @@ def ray_group_bools(rays, chunk_min, chunk_max, min_dst: float, group: int = GRO
         from .. import kernels
 
         with stage("kernels"):
-            out = kernels.ray_groups(rays, cmin, cmax, min_dst, group)
-        ray_group_bools.launches += 1
-        return out
+            return kernels.ray_groups(rays, cmin, cmax, min_dst, group)
     if rays.device.type == "cpu":
         return ray_group_bools_plain(rays, cmin, cmax, min_dst, group)
     raise RuntimeError(f"ray_group_bools: no kernel for device {rays.device}")
-
-
-ray_group_bools.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -749,14 +725,10 @@ def worklist_pass(m8_p, ent, tested, cap, group, n_sub, cbits=None, want_gate=Fa
 
         with stage("kernels"):
             out = kernels.worklist(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
-        worklist_pass.launches += 1
         return Worklist(*out)
     if m8_p.device.type == "cpu":
         return worklist_pass_plain(m8_p, ent, tested, cap, group, n_sub, cbits, want_gate)
     raise RuntimeError(f"worklist_pass: no kernel for device {m8_p.device}")
-
-
-worklist_pass.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1043,15 +1015,10 @@ def run_light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
         from .. import kernels
 
         with stage("kernels"):
-            out = kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
-        run_light_pdf.launches += 1
-        return out
+            return kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
     if rays.device.type == "cpu":
         return run_light_pdf_plain(rays, cluster_woop, cluster_k, idx, counts, min_dst)
     raise RuntimeError(f"run_light_pdf: no kernel for device {rays.device}")
-
-
-run_light_pdf.launches = 0
 
 
 def light_pdf_sum_chunks(
@@ -1147,14 +1114,10 @@ def nearest_box_ids(
 
         with stage("kernels"):
             _, ids = kernels.nearest(rays, bmin, bmax, min_dst)
-        nearest_box_ids.launches += 1
         return ids
     if rays.device.type == "cpu":
         return nearest_box_ids_plain(rays, bmin, bmax, min_dst)[1]
     raise RuntimeError(f"nearest_box_ids: no kernel for device {rays.device}")
-
-
-nearest_box_ids.launches = 0
 
 
 # --------------------------------------------------------------------------

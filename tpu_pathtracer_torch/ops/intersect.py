@@ -184,13 +184,8 @@ def light_pdf_flat(origin, direction, cluster_woop, cluster_k, light_count: int,
     if origin.is_cuda:
         from .. import kernels
 
-        out = kernels.light_pdf_flat(origin.contiguous(), direction.contiguous(), cluster_woop,
-                                     cluster_k, light_count, min_dst)
-        light_pdf_flat.launches += 1
-        return out
+        return kernels.light_pdf_flat(origin.contiguous(), direction.contiguous(), cluster_woop,
+                                      cluster_k, light_count, min_dst)
     if origin.device.type == "cpu":
         return light_pdf_sum_flat(origin, direction, cluster_woop, cluster_k, light_count, min_dst)
     raise RuntimeError(f"light_pdf_flat: no kernel for device {origin.device}")
-
-
-light_pdf_flat.launches = 0

@@ -130,20 +130,15 @@ def lane_uniforms_key(
     (each base an int or a 0-d tensor, mod 2^32): a render passes its
     carries and its traced first sample and pixel apart, and the kernel adds
     them.  The threefry kernel for a CUDA ``pixel``, the plain twin for a
-    CPU one; it counts its kernel launches in ``launches``."""
+    CPU one."""
     if pixel.is_cuda:
         from .. import kernels
 
-        out = kernels.uniforms(k0, k1, sample, depth, pixel, n_draws, sample_base, pixel_base)
-        lane_uniforms_key.launches += 1
-        return out
+        return kernels.uniforms(k0, k1, sample, depth, pixel, n_draws, sample_base, pixel_base)
     if pixel.device.type == "cpu":
         return lane_uniforms_key_plain(k0, k1, sample, depth, pixel, n_draws, sample_base,
                                        pixel_base)
     raise RuntimeError(f"lane_uniforms_key: no kernel for device {pixel.device}")
-
-
-lane_uniforms_key.launches = 0
 
 
 def lane_uniforms(

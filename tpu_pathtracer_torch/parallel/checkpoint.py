@@ -25,14 +25,10 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..models.pathtracer import (
-    attach_call_counts,
-    check_config,
-    engine_loop,
-    pick_chunk,
-    render_chunk,
-    render_chunk_persistent,
-)
+from ..models.pathtracer import background, check_config, chunk_pass, frame_plan, record_rays
+# ``benchmark/tests/test_bench_faults.py`` patches the persistent engine here
+# as well as in ``models.pathtracer``, where ``chunk_pass`` calls it.
+from ..models.pathtracer import render_chunk_persistent  # noqa: F401
 from ..scene.accel import LEAF_SIZE, build_leaves, leaf_woop
 from ..scene.types import TriangleScene
 from ..utils.profiling import span
@@ -188,12 +184,6 @@ def resume_or_start(path: Optional[str], width: int, height: int, seed: int,
     )
 
 
-def background(scene: TriangleScene) -> np.ndarray:
-    """The frame of a scene with RAY_DEPTH 0: its background colour."""
-    bg = scene.bg_color.detach().cpu().numpy().astype(np.float32)
-    return np.broadcast_to(bg, (scene.camera.height, scene.camera.width, 3)).copy()
-
-
 def render_with_checkpoints(
     scene: TriangleScene,
     spp: int,
@@ -211,14 +201,13 @@ def render_with_checkpoints(
     ``config.spp_per_pass``); after each pass the accumulator is saved to
     ``checkpoint_path``.  If that file exists and matches the resolution,
     seed and fingerprint, rendering resumes from its ``samples_done``.
-    Returns the final [H, W, 3] HDR image.  As in ``render``, with the
-    persistent engine ``stats["measured_rays"]`` receives the rays traced
-    (by the passes this call ran) and ``stats["loop"]`` the loop taken.
-    Each pass is a ``pass`` span of the log, holding a ``chunk_pass`` span
-    a chunk (``start``, its first pixel, and ``samples``, as in ``render``:
-    its engine call and its ``readback``, the copy to the host and the
-    accumulate, where the call's ``rays`` and work counts are read:
-    ``attach_call_counts``) and the ``save``;
+    Returns the final [H, W, 3] HDR image.  The chunks and passes are
+    ``frame_plan``'s, as in ``render``, and with the persistent engine
+    ``stats["measured_rays"]`` receives the rays traced (by the passes this
+    call ran) and ``stats["loop"]`` the loop taken.  Each pass is a
+    ``pass`` span of the log, holding a chunk's ``chunk_pass`` (its engine
+    call, the call's counts read right after it, then its ``readback``
+    span: the copy to the host and the accumulate) and the ``save``;
     ``progress`` is called after it."""
     config = config or RenderConfig()
     check_config(config)
@@ -233,45 +222,21 @@ def render_with_checkpoints(
         "checkpoint {path}: scene/config fingerprint or dims/seed mismatch — ignoring it "
         "and restarting from sample 0",
     )
-    chunk = pick_chunk(config, npix)
-    pass_spp = checkpoint_every or config.spp_per_pass
-    # Frame pool: the whole frame is one persistent pool per pass, so the
-    # drain tail is paid once per pass, not once per chunk.
-    frame_pool = config.frame_pool and config.compaction and npix > chunk
-    pix_step = npix if frame_pool else chunk
-
+    plan = frame_plan(config, npix, checkpoint_every)
     measured = 0
-    while state.samples_done < spp:
-        todo = min(pass_spp, spp - state.samples_done)
+    for s0, todo in plan.passes(state.samples_done, spp):
         with span("pass"):
-            for start in range(0, npix, pix_step):
-                n = min(pix_step, npix - start)
-                with span("chunk_pass", start=start, samples=todo):
-                    nb = None
-                    if config.compaction:
-                        if frame_pool:
-                            pc, ar = n, n
-                        else:
-                            pc, ar = (None if n == chunk else n), None
-                        rad, nb = render_chunk_persistent(
-                            scene, start, seed, state.samples_done, chunk, todo, config,
-                            pix_count=pc, accum_rows=ar,
-                        )
-                    else:
-                        rad = render_chunk(scene, start, seed, state.samples_done, chunk, todo,
-                                           config)
+            for start, n in plan.chunks():
+                with chunk_pass(scene, config, plan, start, n, seed, s0, todo) as (rad, rays):
+                    measured += rays
                     with span("readback"):
                         host = rad[:n].cpu().numpy()
                         # The engines return the mean over ``todo``; accumulate the sum.
                         state.accum[start:start + n] += host * todo
-                        if nb is not None:
-                            measured += attach_call_counts(nb)
             state.samples_done += todo
             if checkpoint_path:
                 state.save(checkpoint_path)
         if progress:
             progress(state.samples_done, spp)
-    if stats is not None and config.compaction:
-        stats["measured_rays"] = measured
-        stats["loop"] = engine_loop(config, scene.device)
+    record_rays(stats, config, scene.device, measured)
     return state.image

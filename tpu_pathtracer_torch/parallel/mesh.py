@@ -31,9 +31,15 @@ import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..models.graph import CaptureError
-from ..models.pathtracer import check_config, engine_loop, persistent_accum, pick_chunk, scan_accum
+from ..models.pathtracer import (
+    background,
+    check_config,
+    persistent_accum,
+    pick_chunk,
+    record_rays,
+    scan_accum,
+)
 from ..scene.types import TriangleScene
-from .checkpoint import background
 
 # Collectives that wait longer than this fail instead of hanging: ranks of
 # a mesh do equal shares of a pass, so they reach each merge close together.
@@ -128,10 +134,11 @@ def render_pass_rank(
         pc_rank = min(max(npix - rank_start, 0), n_local)
         # The pool floors at one pixel so a fully padded rank's ``% pool``
         # stays defined; its pool is empty, so nothing spawns.
-        return persistent_accum(
+        acc, counts = persistent_accum(
             scene, rank_start, seed, sample_start + spp_idx * spp_local, n_local,
             pc_rank * my_count, config, pix_count=max(pc_rank, 1),
         )
+        return acc, counts[0]
     acc = scan_accum(scene, rank_start, seed, sample_start + spp_idx * spp_local, n_local,
                      my_count, config)
     return acc, torch.zeros((), dtype=torch.int64, device=dev)
@@ -247,7 +254,5 @@ def render_sharded(
         rad, rays = render_pass_sharded(scene, start, seed, sample_start, chunk, spp, config, mesh)
         out[start:start + n] = rad[:n].cpu().numpy()
         measured += int(rays.cpu().numpy().astype(np.int64).sum())
-    if stats is not None and config.compaction:
-        stats["measured_rays"] = measured
-        stats["loop"] = engine_loop(config, scene.device)
+    record_rays(stats, config, scene.device, measured)
     return out.reshape(h, w, 3)

@@ -26,8 +26,9 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig
+from ..models.pathtracer import background
 from ..scene.types import TriangleScene
-from .checkpoint import background, resume_or_start, scene_fingerprint
+from .checkpoint import resume_or_start, scene_fingerprint
 from .mesh import TIMEOUT, Mesh, gather_in_rank_order, make_mesh, render_sharded
 
 

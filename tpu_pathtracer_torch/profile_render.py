@@ -96,19 +96,17 @@ def _scene_and_config(case, tmp):
 
 
 def _render(scene, config, spp, loop):
-    """(seconds, iterations run, launches) of one render."""
+    """(seconds, iterations run, launches by kernel) of one render."""
+    from . import kernels
     from .models import pathtracer as pt
-    from .models.graph import counted_wrappers
 
-    for fn in counted_wrappers():
-        fn.launches = 0
+    kernels.launches.clear()
     pt.persistent_accum.iterations = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pt.render(scene, spp=spp, seed=0, config=config, eager=loop == "eager")
     seconds = time.perf_counter() - t0
-    return seconds, pt.persistent_accum.iterations, {fn.__name__: fn.launches
-                                                     for fn in counted_wrappers()}
+    return seconds, pt.persistent_accum.iterations, dict(kernels.launches)
 
 
 def _device_times(prof):
