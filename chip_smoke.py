@@ -1082,7 +1082,9 @@ def phase_b4(scene, rays_sets):
 
 def light_worklists(scene, o, d):
     """The inputs B3 gets inside ``light_pdf_sum_chunks`` on these rays:
-    the packed rays and each tile's worklist of pierced light clusters."""
+    the packed rays, the clusters, their boxes grown by ``BOX_SLACK`` and
+    each tile's worklist of pierced light clusters (``kernels.light_pdf``'s
+    arguments; ``plain_b3_args`` drops the boxes for the twin)."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     lights = scene.lights
@@ -1093,39 +1095,83 @@ def light_worklists(scene, o, d):
     ga, ge = ci._group_stats(m8 != 0, ent, 1)
     idx, counts, _ = ci._worklist(ga, ge, lights.cluster_woop.shape[0])
     return (rays, lights.cluster_woop.contiguous(), lights.cluster_k.contiguous(),
+            ci._grown_once(lights.cluster_min, -1.0), ci._grown_once(lights.cluster_max, 1.0),
             idx.contiguous(), counts.contiguous(), EPS)
+
+
+def plain_b3_args(args):
+    """``run_light_pdf_plain``'s arguments from ``kernels.light_pdf``'s."""
+    rays, cw, ck, _, _, idx, counts, min_dst = args
+    return rays, cw, ck, idx, counts, min_dst
 
 
 def phase_b3(scene, rays_sets):
     """B3 kernel vs its twin on the lit-banner atrium's real worklists: the
-    zero / non-zero pattern equal (the Woop test rounds op for op alike),
-    relative error <= 1e-5 on the non-zero sums (all terms are >= 0 and only
-    the order of the sum differs), and the kernel bit-equal across two runs
-    (no atomics).  Returns (max abs error, timing args)."""
+    zero / non-zero pattern equal (the Woop test rounds op for op alike, and
+    a light whose test passes lies in its cluster's grown box, so the
+    kernel's per-ray cull drops only zero terms), relative error <= 1e-5 on
+    the non-zero sums (all terms are >= 0 and only the order of the sum
+    differs), and the kernel bit-equal across two runs (no float atomics);
+    the launch's work counter equal to the twin-side counts: the tile-level
+    (ray, cluster) pairs and those whose ray enters the grown box.  Returns
+    (max abs error, timing args)."""
     from tpu_pathtracer_torch.ops import chunk_intersect as ci
 
     worst, timing = 0.0, None
     for name, (o, d) in rays_sets.items():
         args = light_worklists(scene, o, d)
-        k1 = kernels.light_pdf(*args)
+        rays, _, _, lo, hi, idx, counts, _ = args
+        work = torch.zeros(2, dtype=torch.int64, device=DEV)
+        k1 = kernels.light_pdf(*args, work)
         k2 = kernels.light_pdf(*args)
-        p = ci.run_light_pdf_plain(*args)
+        p = ci.run_light_pdf_plain(*plain_b3_args(args))
+        entered = int(ci.light_pdf_entered_plain(rays, lo, hi, idx, counts, EPS).sum())
+        pairs = int(counts.sum()) * ci.RAY_TILE
         torch.cuda.synchronize()
         nz = p != 0
         pattern = int(((k1 != 0) != nz).sum())
         rel = float(((k1[nz] - p[nz]).abs() / p[nz]).max()) if nz.any() else 0.0
         err = float((k1 - p).abs().max())
         worst = max(worst, err)
-        counts = args[4]
+        kernel_work = work.tolist()
         emit("b3", rays=name, clusters=args[1].shape[0], items=int(counts.sum()),
              max_tile_items=int(counts.max()), nonzero=int(nz.sum()),
              pattern_mismatch=pattern, max_rel_err=rel, max_abs_err=err,
-             deterministic=bool(torch.equal(k1, k2)))
+             deterministic=bool(torch.equal(k1, k2)), b3_pairs=kernel_work[0],
+             b3_live=kernel_work[1], twin_pairs=pairs, twin_live=entered,
+             live_share=entered / max(pairs, 1))
         if pattern or rel > 1e-5 or not torch.equal(k1, k2) or int(nz.sum()) == 0:
             raise AssertionError(f"B3 kernel disagrees with its twin ({name})")
+        if kernel_work != [pairs, entered]:
+            raise AssertionError(f"B3's work counter {kernel_work} != the twin's "
+                                 f"{[pairs, entered]} ({name})")
         if name == "secondary":
             timing = args
     return worst, timing
+
+
+def b3_timing(b3_args):
+    """B3 and its twin timed on ``b3_args`` (the lit-banner secondaries),
+    and the kernel's work for the kernel table: the Woop pairs of the rays
+    that enter the box (x ``PDF_OPS``) and one slab test a tile-level (ray,
+    cluster) pair (x ``SLAB_OPS``); the tile-level bound (every pair of the
+    worklist Woop-tested, the earlier design's) beside it.  Returns
+    ((kernel ms, twin ms), (pairs, ops a pair, bytes), tile-level bound ms)."""
+    from tpu_pathtracer_torch.ops import chunk_intersect as ci
+
+    rays, cluster_woop, cluster_k, lo, hi, idx, counts, _ = b3_args
+    times = (sync_ms(lambda: kernels.light_pdf(*b3_args), 20),
+             sync_ms(lambda: ci.run_light_pdf_plain(*plain_b3_args(b3_args)), 3))
+    cw = cluster_woop.shape[2]
+    pairs = int(counts.sum()) * ci.RAY_TILE
+    entered = int(ci.light_pdf_entered_plain(rays, lo, hi, idx, counts, EPS).sum())
+    n_bytes = nbytes(rays, cluster_woop, cluster_k, lo, hi, idx, counts) + 4 * rays.shape[0]
+    work = (entered * cw * PDF_OPS + pairs * SLAB_OPS, 1, n_bytes)
+    tile_bound_ms = bound({"fp32": (pairs * cw * PDF_OPS, 128)}, n_bytes)[0]
+    emit("b3_timing", rays="lit-banner secondary", b3_ms=times[0], b3_plain_ms=times[1],
+         b3_pairs=pairs, b3_live=entered, live_share=entered / max(pairs, 1),
+         bound_ms=bound({"fp32": (work[0], 128)}, n_bytes)[0], tile_bound_ms=tile_bound_ms)
+    return times, work, tile_bound_ms
 
 
 # Lane operations a ray of K2 (csrc/shade_kernels.cu shade_gather_kernel),
@@ -1332,7 +1378,8 @@ def phase_shading(tmp, scene, rays_sets, field, env):
     t_tiles = N_RAYS // ci.RAY_TILE
     idx = torch.arange(cw.shape[0], dtype=torch.int32, device=DEV).repeat(t_tiles, 1).contiguous()
     counts = torch.full((t_tiles,), cw.shape[0], dtype=torch.int32, device=DEV)
-    b3_args = (ci.pack_rays(o, d), cw, ck, idx, counts, EPS)
+    b3_args = (ci.pack_rays(o, d), cw, ck, ci._grown_once(scene.lights.cluster_min, -1.0),
+               ci._grown_once(scene.lights.cluster_max, 1.0), idx, counts, EPS)
     b3_ms = queued_ms(lambda: kernels.light_pdf(*b3_args), 50)
     k1 = kernels.light_pdf_flat(*args)
     b3 = kernels.light_pdf(*b3_args) / float(max(args[4], 1))
@@ -2731,7 +2778,7 @@ def phase_tile256(scene, brutes, rays_sets):
 LIBRARY_NOTE = {
     "b1": "none: a slab test fused with a per-sub-tile entry minimum",
     "b2": "none: a Woop test fused with a first minimum over a per-tile worklist",
-    "b3": "none: a masked sum of Woop terms over a per-tile worklist",
+    "b3": "none: a masked sum of Woop terms over the worklist clusters each ray enters",
     "b4": "none: a slab test fused with a first-minimum argmin",
     "b5": "none: a Woop test fused with a first minimum over the active pairs",
     "b6": "none: a Woop test fused with a first minimum over a per-tile worklist",
@@ -2794,11 +2841,11 @@ def kernel_work(b1_args, b2_args, b2_units, b4_args, b5_args, b7_args):
 
 
 def run_only(names):
-    """The phases named (shading, shade_chain, worklist, engine, homebrew,
+    """The phases named (b3, shading, shade_chain, worklist, engine, homebrew,
     sharded, headline, headline_full) on their own: ``python3 chip_smoke.py engine homebrew``.
     ``headline_full`` runs only when named.  The last line then names the
     phases run; only the full run ends with the contract's line."""
-    unknown = set(names) - {"shading", "shade_chain", "worklist", "engine", "homebrew",
+    unknown = set(names) - {"b3", "shading", "shade_chain", "worklist", "engine", "homebrew",
                             "sharded", "headline", "headline_full"}
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
@@ -2810,6 +2857,11 @@ def run_only(names):
             textured = True
         except ImportError:
             textured = False
+        if "b3" in names:
+            _, _, _, scene, rays_sets = make_inputs(tmp, lit_banners=True)
+            _, b3_args = phase_b3(scene, rays_sets)
+            b3_timing(b3_args)
+            del scene, rays_sets, b3_args
         if "worklist" in names:
             _, _, _, scene, rays_sets = make_inputs(tmp)
             phase_worklist(scene, rays_sets)
@@ -2917,15 +2969,11 @@ def main(only=()):
                 ci.pack_rays(o, d), scene.lights.cluster_min.contiguous(),
                 scene.lights.cluster_max.contiguous(), None, None, EPS, ci.RAY_TILE, 1, False)))
         b3_err, b3_args = phase_b3(scene, rays_sets)
-        times["b3"] = (sync_ms(lambda: kernels.light_pdf(*b3_args), 20),
-                       sync_ms(lambda: ci.run_light_pdf_plain(*b3_args), 3))
-        rays, cluster_woop, cluster_k, idx, counts, _ = b3_args
-        work["b3"] = (int(counts.sum()) * ci.RAY_TILE * cluster_woop.shape[2], PDF_OPS,
-                      nbytes(rays, cluster_woop, cluster_k, idx, counts) + 4 * rays.shape[0])
+        times["b3"], work["b3"], b3_tile_bound_ms = b3_timing(b3_args)
         emit("timing", **{f"{k}_ms": v[0] for k, v in times.items()},
              **{f"{k}_plain_ms": v[1] for k, v in times.items()},
              b1_gate_ms=b1_ms["gate"], b1_recheck_ms=b1_ms["recheck"])
-        del scene, rays_sets, b3_args, rays, cluster_woop, cluster_k, idx, counts
+        del scene, rays_sets, b3_args
         torch.cuda.empty_cache()
 
         phase_golden(tmp)
@@ -2986,7 +3034,8 @@ def main(only=()):
             "plain_ms": times[k][1], "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / times[k][0], "library_ms": None,
             "library_note": LIBRARY_NOTE[k],
-            "work": {"pairs": pairs, "ops_per_pair": ops, "bytes": n_bytes}})
+            "work": {"pairs": pairs, "ops_per_pair": ops, "bytes": n_bytes},
+            **({"tile_bound_ms": b3_tile_bound_ms} if k == "b3" else {})})
     ms, plain_ms, rng_err = rng_times["bounce"]
     pipes, n_bytes = rng_work(N_RAYS)
     bound_ms, bound_by = bound(pipes, n_bytes)

@@ -288,13 +288,20 @@ def _gated_pairs(r, ray_tile, c, gate):
 
 
 def _spy(monkeypatch):
-    """Count B2's units and B1's tests directly at every launch."""
-    direct = {"b2_units": 0, "b1_tests": 0}
-    items, activity = ci.run_items, ci.tile_chunk_activity
+    """Count B2's units, B1's tests and B3's pairs directly at every launch
+    (the atrium's six lights take K1: no B3 launch, its counts stay 0)."""
+    direct = dict.fromkeys(pt.WORK_COUNTS, 0)
+    items, activity, pdf = ci.run_items, ci.tile_chunk_activity, ci.run_light_pdf
 
     def run_items(*args):
         direct["b2_units"] += _set_bits(args[5], args[6], args[8], args[9])
         return items(*args)
+
+    def run_light_pdf(rays, cw, ck, box_min, box_max, idx, counts, min_dst):
+        direct["b3_pairs"] += int(counts.sum()) * (rays.shape[0] // idx.shape[0])
+        direct["b3_live"] += int(ci.light_pdf_entered_plain(rays, box_min, box_max, idx, counts,
+                                                            min_dst).sum())
+        return pdf(rays, cw, ck, box_min, box_max, idx, counts, min_dst)
 
     def tile_chunk_activity(rays, cmin, cmax, tbest, gate, min_dst, ray_tile, *rest, **kw):
         direct["b1_tests"] += _gated_pairs(rays.shape[0], ray_tile, cmin.shape[0], gate)
@@ -302,6 +309,7 @@ def _spy(monkeypatch):
 
     monkeypatch.setattr(ci, "run_items", run_items)
     monkeypatch.setattr(ci, "tile_chunk_activity", tile_chunk_activity)
+    monkeypatch.setattr(ci, "run_light_pdf", run_light_pdf)
     return direct
 
 

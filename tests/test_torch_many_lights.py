@@ -179,10 +179,10 @@ def test_torch_light_kernel_wrappers_reject_other_devices():
     device raises instead of falling back (B3 and B4)."""
     rays = torch.zeros((128, 8), device="meta")
     idx = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    box = torch.zeros((4, 3), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         ci.run_light_pdf(rays, torch.zeros((1, 12, 128), device="meta"),
-                         torch.zeros((1, 128), device="meta"), idx, idx[0], EPS)
-    box = torch.zeros((4, 3), device="meta")
+                         torch.zeros((1, 128), device="meta"), box[:1], box[:1], idx, idx[0], EPS)
     with pytest.raises(RuntimeError, match="no kernel"):
         ci.nearest_box_ids(rays[:, :3], rays[:, 4:7], box, box, EPS, ray_tile=128)
 

@@ -153,7 +153,8 @@ def test_torch_engine_call_counts_sum_to_iterations(tmp_path, eager):
     assert sum(c.counts["iterations"] for c in calls) == pt.persistent_accum.iterations - it0
     assert sum(c.counts["rays"] for c in calls) == stats["measured_rays"]
     assert all(set(c.counts) == {"lanes", "ray_tile", "chunks", "iterations", "rays", "b2_units",
-                                 "b1_tests"} and c.counts["lanes"] == 512 for c in calls)
+                                 "b1_tests", "b3_pairs", "b3_live"} and c.counts["lanes"] == 512
+               for c in calls)
     passes = {p.id: p for p in _after(mark, "chunk_pass")}
     assert [passes[c.parent].counts for c in calls] == [
         {"start": a, "samples": b} for a, b in ((0, 2), (0, 1), (512, 2), (512, 1))]
@@ -167,9 +168,10 @@ def test_torch_engine_call_counts_sum_to_iterations(tmp_path, eager):
 def test_torch_engine_calls_carry_the_counts_the_engine_returned(tmp_path, monkeypatch, entry,
                                                                   frame_pool):
     """Each ``engine_call`` span of both frame loops carries ``rays``,
-    ``b2_units`` and ``b1_tests`` equal to the counts its
-    ``persistent_accum`` call returned (through ``render_chunk_persistent``),
-    and the measured rays are their sum."""
+    ``b2_units``, ``b1_tests``, ``b3_pairs`` and ``b3_live`` equal to the
+    counts its ``persistent_accum`` call returned (through
+    ``render_chunk_persistent``), and the measured rays are their sum; the
+    atrium's six lights take K1, so B3 counts nothing."""
     path = fixtures.make_atrium_gltf(str(tmp_path / "a" / "atrium.gltf"), detail=0,
                                      textured=False)
     scene = parse_gltf_scene(path, 1.0)
@@ -192,9 +194,10 @@ def test_torch_engine_calls_carry_the_counts_the_engine_returned(tmp_path, monke
     calls = _after(mark, "engine_call")
     # Two passes of the frame as one pool, or of two chunks of 512 pixels.
     assert len(calls) == len(returned) == (2 if frame_pool else 4)
-    assert [[c.counts[k] for k in ("rays", "b2_units", "b1_tests")] for c in calls] == returned
-    assert all(b2 > 0 and b1 > 0 for _, b2, b1 in returned)
-    assert stats["measured_rays"] == sum(r for r, _, _ in returned)
+    assert [[c.counts[k] for k in pt.CALL_COUNTS] for c in calls] == returned
+    assert pt.CALL_COUNTS == ("rays", "b2_units", "b1_tests", "b3_pairs", "b3_live")
+    assert all(b2 > 0 and b1 > 0 and b3 == b3_live == 0 for _, b2, b1, b3, b3_live in returned)
+    assert stats["measured_rays"] == sum(r for r, *_ in returned)
 
 
 def test_torch_stage_map_assigns_every_node_once():

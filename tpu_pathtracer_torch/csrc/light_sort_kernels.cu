@@ -17,20 +17,32 @@
 //   over every light of every cluster in its tile's worklist of
 //   t^2 |d|^2 k / |q2| where the Woop test passes and t >= min_dst.
 //   Bound on the H100: ALU (~65 lane ops and two divides per (ray, light)
-//   pair; the inputs per cluster are a 6.5 KB block read by every ray of the
-//   tile).  Design: a tile's worklist is cut into segments of ``seg``
-//   clusters, and each block owns one (128-ray slice, segment): the
-//   longest tile no longer sets the time, and the blocks of every tile
-//   spread over the SMs.  A block stages its clusters triangle-major (three
-//   float4 of Woop rows per light) with k[128] beside them, each by one
-//   cp.async.bulk (TMA) into a two-stage ring completed on an mbarrier, so
-//   the next cluster is in flight while the current one is walked.  Each
-//   thread sums its ray's terms over the segment in worklist order and
-//   writes the partial sum to scratch [n_seg, R]; a second pass adds a
-//   ray's partial sums in segment order.  No float atomics: the result is
-//   the same from run to run.  The Woop arithmetic is the twin's op for op,
-//   so the set of lights a ray passes is the same; only the order of the
-//   sum differs.  No tensor cores, for B2's reason (chunk_kernels.cu).
+//   pair that is tested, ~30 per (ray, cluster) box test).  The worklist is
+//   per tile, but a ray enters few of the boxes its tile's rays enter, and
+//   a light whose Woop test passes lies in its cluster's box: so each ray
+//   is first slab-tested against the boxes (grown by BOX_SLACK, no far
+//   bound: the pdf sums every hit), and only the pairs whose ray enters
+//   the box are Woop-tested.  Design: a tile's worklist is cut into
+//   segments of ``seg`` clusters, and each block owns one (128-ray slice,
+//   segment): the longest tile no longer sets the time, and the blocks of
+//   every tile spread over the SMs.  Each thread slab-tests its ray against
+//   the segment's boxes, one ballot a cluster; a cluster no ray of the
+//   block enters is never staged.  The entered clusters are staged
+//   triangle-major (three float4 of Woop rows per light) with k[128] beside
+//   them, each by one cp.async.bulk (TMA) into a two-stage ring completed on
+//   an mbarrier, so the next one is in flight while the current one is
+//   walked.  For each staged cluster the rays that enter it are compacted
+//   into a list (ballot and popc prefix), and the list is walked one warp a
+//   ray: lane l tests lights l, l+32, ... in order, and a fixed xor-shuffle
+//   tree adds the lanes' sums.  A ray adds its clusters' sums in worklist
+//   order and writes the segment's partial sum to scratch [n_seg, R]; a
+//   second pass adds a ray's partial sums in segment order.  No float
+//   atomics: the result is the same from run to run.  The Woop arithmetic
+//   is the twin's op for op, so the set of lights a ray passes is the same;
+//   only the order of the sum differs.  Given a work counter, one thread a
+//   block adds the segment's (ray, cluster) pairs (tile level) and those
+//   whose ray enters the box, by integer atomics.  No tensor cores, for
+//   B2's reason (chunk_kernels.cu).
 //
 // B4  nearest_kernel
 //   Replaces tpu_pathtracer/ops/pallas_intersect.py:1673 (_nearest_kernel,
@@ -57,24 +69,35 @@
 namespace {
 
 constexpr int kPdfThreads = 128;     // rays per light-pdf block (a tile slice)
+constexpr int kPdfWarps = kPdfThreads / 32;
+constexpr int kPdfMaxSeg = 32;       // clusters per segment: one bit each of a ray's mask
 constexpr int kPdfStages = 2;        // B3's ring of staged clusters
 constexpr int kStageAlign = 128;     // bytes before the ring (the barriers)
 constexpr int kSumThreads = 256;     // rays per segment-sum block
 constexpr int kNearThreads = 256;    // rays per nearest-box block
 constexpr int kNearStage = 512;      // boxes staged in shared memory at once
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kPdfThreads) light_pdf_kernel(
     const float* __restrict__ rays,          // [R, 8] (o, 1, d, 0)
     const float4* __restrict__ woop_t,       // [C, cw, 3] triangle-major Woop rows
     const float* __restrict__ cluster_k,     // [C, cw]
+    const float* __restrict__ box_lo,        // [C, 3] grown cluster boxes
+    const float* __restrict__ box_hi,        // [C, 3]
     const int32_t* __restrict__ idx,         // [T, cap]
     const int32_t* __restrict__ counts,      // [T]
     int n_rays, int cap, int cw, int ray_tile, int seg, float min_dst,
-    float* __restrict__ partial) {           // [n_seg, R]
+    float* __restrict__ partial,             // [n_seg, R]
+    unsigned long long* __restrict__ work) { // [2] (pairs, entered pairs) or null
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);                      // [kPdfStages]
   float4* wring = reinterpret_cast<float4*>(smem + kStageAlign);          // [kPdfStages][cw * 3]
   float* kring = reinterpret_cast<float*>(wring + (size_t)kPdfStages * cw * 3);  // [kPdfStages][cw]
+  __shared__ float4 s_ray[kPdfThreads][2];          // (o, |d|^2), (d, 0) of each thread's ray
+  __shared__ uint32_t s_ball[kPdfMaxSeg][kPdfWarps];  // who enters each cluster, a word a warp
+  __shared__ unsigned char s_list[kPdfThreads];    // the staged cluster's entering rays, compacted
+  __shared__ float s_sum[kPdfThreads];             // their sums over the cluster
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int tile = (int)(((size_t)blockIdx.x * blockDim.x) / ray_tile);
   const int s0 = blockIdx.y * seg;
@@ -94,32 +117,79 @@ __global__ void __launch_bounds__(kPdfThreads) light_pdf_kernel(
     for (int k = 0; k < kPdfStages; ++k) tpt::mbar_init(&bar[k]);
     tpt::mbar_init_fence();
   }
-  __syncthreads();
-  if (threadIdx.x == 0) issue(list[0], 0);
 
   const float* ray = rays + i * 8;
   const float o0 = ray[0], o1 = ray[1], o2 = ray[2];
   const float d0 = ray[4], d1 = ray[5], d2 = ray[6];
   const float dd = (d0 * d0 + d1 * d1) + d2 * d2;
+  s_ray[threadIdx.x][0] = make_float4(o0, o1, o2, dd);
+  s_ray[threadIdx.x][1] = make_float4(d0, d1, d2, 0.0f);
+  const float i0 = tpt::inv_dir(d0), i1 = tpt::inv_dir(d1), i2 = tpt::inv_dir(d2);
+  uint32_t mask = 0;  // bit j: this ray enters the box of the segment's cluster j
+  for (int j = 0; j < n; ++j) {
+    const float* lo = box_lo + (size_t)list[j] * 3;
+    const float* hi = box_hi + (size_t)list[j] * 3;
+    float t_lo, t_hi;
+    tpt::slab_interval(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], o0, o1, o2, i0, i1, i2, &t_lo,
+                       &t_hi);
+    const bool in = t_lo <= t_hi && t_hi >= min_dst;
+    const uint32_t b = __ballot_sync(kFull, in);
+    if (lane == 0) s_ball[j][warp] = b;
+    mask |= (uint32_t)in << j;
+  }
+  __syncthreads();  // the ballots, the rays and the barriers are in place
+
+  uint32_t staged = 0;  // bit j: some ray of the block enters cluster j
+  int entered = 0;
+  for (int j = 0; j < n; ++j) {
+    int m = 0;
+    for (int w = 0; w < kPdfWarps; ++w) m += __popc(s_ball[j][w]);
+    staged |= (uint32_t)(m > 0) << j;
+    entered += m;
+  }
+  if (work != nullptr && threadIdx.x == 0) {
+    atomicAdd(work, (unsigned long long)n * kPdfThreads);
+    if (entered > 0) atomicAdd(work + 1, (unsigned long long)entered);
+  }
   float acc = 0.0f;
-  for (int c = 0; c < n; ++c) {
-    if (c + 1 < n && threadIdx.x == 0) {
+  if (staged != 0 && threadIdx.x == 0) issue(list[__ffs(staged) - 1], 0);
+  int q = 0;  // staged clusters walked so far: the ring's position
+  for (uint32_t rest = staged; rest != 0; rest &= rest - 1, ++q) {
+    const int j = __ffs(rest) - 1;
+    const uint32_t next = rest & (rest - 1);
+    if (next != 0 && threadIdx.x == 0) {
       tpt::fence_proxy_async();  // the stage's last readers passed __syncthreads
-      issue(list[c + 1], (c + 1) % kPdfStages);
+      issue(list[__ffs(next) - 1], (q + 1) % kPdfStages);
     }
-    tpt::mbar_wait(&bar[c % kPdfStages], (c / kPdfStages) & 1);
-    const float4* w = wring + (size_t)(c % kPdfStages) * cw * 3;
-    const float* k = kring + (size_t)(c % kPdfStages) * cw;
-    float csum = 0.0f;
-    for (int j = 0; j < cw; ++j) {
-      float t, q2;
-      if (tpt::woop_hit(w[3 * j], w[3 * j + 1], w[3 * j + 2], o0, o1, o2, d0, d1, d2, min_dst,
-                        &t, &q2)) {
-        csum = csum + t * t * dd * k[j] / fabsf(q2);
+    int before = 0, m = 0;
+    for (int w = 0; w < kPdfWarps; ++w) {
+      const int p = __popc(s_ball[j][w]);
+      before += w < warp ? p : 0;
+      m += p;
+    }
+    const bool in = (mask >> j) & 1u;
+    const int pos = before + __popc(s_ball[j][warp] & ((1u << lane) - 1u));
+    if (in) s_list[pos] = (unsigned char)threadIdx.x;
+    __syncthreads();  // the list is complete
+    tpt::mbar_wait(&bar[q % kPdfStages], (q / kPdfStages) & 1);
+    const float4* w = wring + (size_t)(q % kPdfStages) * cw * 3;
+    const float* k = kring + (size_t)(q % kPdfStages) * cw;
+    for (int p = warp; p < m; p += kPdfWarps) {
+      const int r = s_list[p];
+      const float4 ro = s_ray[r][0], rd = s_ray[r][1];
+      float part = 0.0f;
+      for (int l = lane; l < cw; l += 32) {
+        float t, q2;
+        if (tpt::woop_hit(w[3 * l], w[3 * l + 1], w[3 * l + 2], ro.x, ro.y, ro.z, rd.x, rd.y,
+                          rd.z, min_dst, &t, &q2)) {
+          part = part + t * t * ro.w * k[l] / fabsf(q2);
+        }
       }
+      for (int s = 16; s > 0; s >>= 1) part = part + __shfl_xor_sync(kFull, part, s);
+      if (lane == 0) s_sum[p] = part;
     }
-    acc = acc + csum;
-    __syncthreads();  // every thread is done with this stage before it is refilled
+    __syncthreads();  // the sums are in place; every reader of this stage is done
+    if (in) acc = acc + s_sum[pos];
   }
   partial[(size_t)blockIdx.y * n_rays + i] = acc;
 }
@@ -190,15 +260,17 @@ __global__ void nearest_kernel(
 }  // namespace
 
 extern "C" int tpt_light_pdf(
-    const void* rays, const void* woop_t, const void* cluster_k, const void* idx,
-    const void* counts, int n_rays, int cap, int cw, int ray_tile, int seg, float min_dst,
-    void* partial, void* out, void* stream) {
+    const void* rays, const void* woop_t, const void* cluster_k, const void* box_lo,
+    const void* box_hi, const void* idx, const void* counts, int n_rays, int cap, int cw,
+    int ray_tile, int seg, float min_dst, void* partial, void* out, void* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (seg < 1 || seg > kPdfMaxSeg) return (int)cudaErrorInvalidValue;
   const int n_seg = (cap + seg - 1) / seg;
   const size_t smem = kStageAlign + (size_t)kPdfStages * cw * (3 * sizeof(float4) + sizeof(float));
   light_pdf_kernel<<<dim3(n_rays / kPdfThreads, n_seg), kPdfThreads, smem, st>>>(
-      (const float*)rays, (const float4*)woop_t, (const float*)cluster_k, (const int32_t*)idx,
-      (const int32_t*)counts, n_rays, cap, cw, ray_tile, seg, min_dst, (float*)partial);
+      (const float*)rays, (const float4*)woop_t, (const float*)cluster_k, (const float*)box_lo,
+      (const float*)box_hi, (const int32_t*)idx, (const int32_t*)counts, n_rays, cap, cw,
+      ray_tile, seg, min_dst, (float*)partial, (unsigned long long*)work);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   light_pdf_sum_kernel<<<(n_rays + kSumThreads - 1) / kSumThreads, kSumThreads, 0, st>>>(

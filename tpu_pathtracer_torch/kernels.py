@@ -58,7 +58,7 @@ LIBRARIES = {
         "tpt_worklist": [_P] * 4 + [_I] * 8 + [_P] * 10,
     },
     "light_sort_kernels": {
-        "tpt_light_pdf": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
+        "tpt_light_pdf": [_P] * 7 + [_I] * 5 + [_F] + [_P] * 4,
         "tpt_nearest": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
     },
     "mode_kernels": {
@@ -318,15 +318,21 @@ def worklist(m8, ent, tested, cap, group, n_sub, cbits, want_gate):
     return ga, ge, idx, counts, masks, offsets, gate
 
 
-# Clusters per B3 block: a tile's worklist is cut into segments this long.
+# Clusters per B3 block: a tile's worklist is cut into segments this long
+# (at most 32: one bit each of a ray's mask in the kernel).
 PDF_SEGMENT = 4
 
 
-def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
-    """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``).
-    The kernel reads the triangle-major copy of ``cluster_woop`` ([C, cw, 12],
-    ``triangle_major``) and writes per-segment partial sums to scratch
-    [n_seg, R]."""
+def light_pdf(rays, cluster_woop, cluster_k, box_min, box_max, idx, counts, min_dst, work=None):
+    """Launch B3 (contract: ``ops.chunk_intersect.run_light_pdf_plain``; the
+    boxes: ``ops.chunk_intersect.light_pdf_entered_pairs_plain``).  The
+    kernel reads the triangle-major copy of ``cluster_woop`` ([C, cw, 12],
+    ``triangle_major``), tests only the (ray, cluster) pairs whose ray
+    enters the cluster's box ``box_min`` / ``box_max`` ([C, 3], grown by
+    ``BOX_SLACK``), and writes per-segment partial sums to scratch [n_seg,
+    R].  ``work``: None, or a [2] int64 tensor on the device to which the
+    launch adds its tile-level (ray, cluster) pairs and those whose ray
+    enters the box."""
     dev = rays.device
     r = rays.shape[0]
     t_tiles, cap = idx.shape
@@ -337,16 +343,20 @@ def light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
     _check(rays, "rays", torch.float32, (r, 8), dev)
     _check(cluster_woop, "cluster_woop", torch.float32, (c, 12, cw), dev)
     _check(cluster_k, "cluster_k", torch.float32, (c, cw), dev)
+    _check(box_min, "box_min", torch.float32, (c, 3), dev)
+    _check(box_max, "box_max", torch.float32, (c, 3), dev)
     _check(idx, "idx", torch.int32, (t_tiles, cap), dev)
     _check(counts, "counts", torch.int32, (t_tiles,), dev)
+    if work is not None:
+        _check(work, "work", torch.int64, (2,), dev)
     woop_t = triangle_major(cluster_woop)
     partial = torch.empty((-(-cap // PDF_SEGMENT), r), dtype=torch.float32, device=dev)
     out = torch.empty((r,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = library("light_sort_kernels").tpt_light_pdf(
-            _ptr(rays), _ptr(woop_t), _ptr(cluster_k), _ptr(idx), _ptr(counts),
-            r, cap, cw, ray_tile, PDF_SEGMENT, float(min_dst), _ptr(partial), _ptr(out),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(rays), _ptr(woop_t), _ptr(cluster_k), _ptr(box_min), _ptr(box_max), _ptr(idx),
+            _ptr(counts), r, cap, cw, ray_tile, PDF_SEGMENT, float(min_dst), _ptr(partial),
+            _ptr(out), _ptr(work), torch.cuda.current_stream(dev).cuda_stream,
         )
     _launched(rc, "light_pdf", "b3")
     return out

@@ -498,7 +498,7 @@ LOOP_ITERATIONS = 4
 # Compiled loops kept at once (each holds its scene's tensors and its pool).
 GRAPH_CACHE = 4
 # The entries of the persistent loop's work carry (``ops.chunk_intersect.count_work``).
-WORK_COUNTS = ("b2_units", "b1_tests")
+WORK_COUNTS = ("b2_units", "b1_tests", "b3_pairs", "b3_live")
 # The counts ``persistent_accum`` returns: the rays traced, then the work.
 CALL_COUNTS = ("rays",) + WORK_COUNTS
 
@@ -750,7 +750,7 @@ def persistent_accum(
 ):
     """Persistent wavefront with path regeneration.  Work item w covers
     (pixel slot w % P, local sample w // P), P = pix_count or n_rays.
-    Returns ([rows, 3] radiance sum, [3] int64 counts on the device:
+    Returns ([rows, 3] radiance sum, [5] int64 counts on the device:
     ``CALL_COUNTS``, the live lanes summed over bounces = rays traced, then
     the work below).
 
@@ -778,10 +778,12 @@ def persistent_accum(
     adds 0 and ``next_work`` stays at ``w_total``.
     ``persistent_accum.iterations`` counts the iterations run.
 
-    The loop also counts, on the device, the intersector's work of every
-    bounce into its ``work`` carry (``WORK_COUNTS``; ``count_work``): B2's
-    units and B1's (tile, chunk) tests, over every launch the loop makes,
-    those past the end included.
+    The loop also counts, on the device, the intersector's and the light
+    pdf's work of every bounce into its ``work`` carry (``WORK_COUNTS``;
+    ``count_work``): B2's units, B1's (tile, chunk) tests, and B3's
+    tile-level (ray, cluster) pairs and those whose ray enters the
+    cluster's box, over every launch the loop makes, those past the end
+    included.
 
     The call is an ``engine_call`` span of the log with ``lanes``,
     ``ray_tile`` (``intersect_tile``), ``chunks``, ``iterations`` and, on
@@ -840,7 +842,8 @@ persistent_accum.iterations = 0
 def attach_call_counts(counts: torch.Tensor) -> int:
     """Read the newest engine call's ``counts`` (``persistent_accum``'s) in
     one host read, attach them to its ``engine_call`` span as ``rays``,
-    ``b2_units`` and ``b1_tests``, and return the rays."""
+    ``b2_units``, ``b1_tests``, ``b3_pairs`` and ``b3_live``, and return
+    the rays."""
     values = counts.tolist()
     last("engine_call").add(**dict(zip(CALL_COUNTS, values)))
     return values[0]

@@ -303,23 +303,25 @@ _WORK: list = [None]
 
 @contextlib.contextmanager
 def count_work(work: torch.Tensor):
-    """Add the enclosed cascades' work to ``work`` ([2] int64 on the device)
+    """Add the enclosed launches' work to ``work`` ([4] int64 on the device)
     in place, with no host read: B2's units (64 rays x 128 triangles each)
     at 0 and B1's gated (tile, chunk) slab tests at 1, over every launch of
     either, taken from the worklists and gates the tensor code builds, so
-    the kernels and their twins count the same.  A launch only notes its
-    unit total or its gate; the sums are taken once, at the end, in ten
-    device operations however many launches there were."""
-    outer, _WORK[0] = _WORK[0], dict(units=[], gates={}, ungated=0)
+    the kernels and their twins count the same; B3's tile-level (ray,
+    cluster) pairs at 2 and those whose ray enters the cluster's grown box
+    at 3, which B3 adds itself (its twin in plain torch).  A B1 or B2 launch
+    only notes its unit total or its gate; their sums are taken once, at
+    the end, in ten device operations however many launches there were."""
+    outer, _WORK[0] = _WORK[0], dict(units=[], gates={}, ungated=0, work=work)
     try:
         yield
         seen = _WORK[0]
         if seen["units"]:
             work[:1].add_(torch.cat(seen["units"]).sum())
         for (columns, _), words in seen["gates"].items():
-            work[1:].add_(_gated_tests(torch.stack(words), columns))
+            work[1:2].add_(_gated_tests(torch.stack(words), columns))
         if seen["ungated"]:
-            work[1:].add_(seen["ungated"])
+            work[1:2].add_(seen["ungated"])
     finally:
         _WORK[0] = outer
 
@@ -1008,15 +1010,49 @@ def run_light_pdf_plain(
     return total.reshape(r)
 
 
-def run_light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst):
+def light_pdf_entered_plain(
+    rays: torch.Tensor,  # [R, 8]
+    box_min: torch.Tensor,  # [C, 3] cluster boxes, grown (NaN rows: never entered)
+    box_max: torch.Tensor,  # [C, 3]
+    idx: torch.Tensor,  # [T, cap] int32 cluster ids
+    counts: torch.Tensor,  # [T] int32 valid slots per tile
+    min_dst: float,
+) -> torch.Tensor:
+    """[T, RT, cap] bool: ray (tile, j) enters the box of the cluster in its
+    tile's valid slot s, by B1's slab test with no far bound (``t_lo <= t_hi
+    & t_hi >= min_dst``).  The B3 kernel Woop-tests only these pairs: a
+    light whose Woop test passes lies in its cluster's box, and the boxes
+    are grown by ``BOX_SLACK`` so the rounded slab test reaches it."""
+    t_tiles, cap = idx.shape
+    rt = rays.shape[0] // t_tiles
+    t_lo, t_hi = _slab(rays[:, 0:3], _inv_dir(rays[:, 4:7]), box_min, box_max)  # [R, C]
+    enters = ((t_lo <= t_hi) & (t_hi >= min_dst)).reshape(t_tiles, rt, -1)
+    listed = torch.gather(enters, 2, idx.long()[:, None, :].expand(t_tiles, rt, cap))
+    valid = torch.arange(cap, device=rays.device)[None, :] < counts[:, None]
+    return listed & valid[:, None, :]
+
+
+def run_light_pdf(rays, cluster_woop, cluster_k, box_min, box_max, idx, counts, min_dst):
     """B3 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors (see ``run_light_pdf_plain`` for the contract)."""
+    tensors (see ``run_light_pdf_plain`` for the contract; the kernel tests
+    only the pairs of ``light_pdf_entered_plain``, which give the same
+    sums).  Under ``count_work`` it adds the tile-level (ray, cluster)
+    pairs, Σ ``counts`` x the ray tile, and the pairs whose ray enters the
+    box to the work's entries 2 and 3: the kernel by its own counter, the
+    twin path in plain torch."""
+    seen = _WORK[0]
+    work = None if seen is None else seen["work"][2:4]
     if rays.is_cuda:
         from .. import kernels
 
         with stage("kernels"):
-            return kernels.light_pdf(rays, cluster_woop, cluster_k, idx, counts, min_dst)
+            return kernels.light_pdf(rays, cluster_woop, cluster_k, box_min, box_max, idx,
+                                     counts, min_dst, work)
     if rays.device.type == "cpu":
+        if work is not None:
+            pairs = counts.sum(dtype=torch.int64) * (rays.shape[0] // idx.shape[0])
+            entered = light_pdf_entered_plain(rays, box_min, box_max, idx, counts, min_dst).sum()
+            work.add_(torch.stack([pairs, entered]))
         return run_light_pdf_plain(rays, cluster_woop, cluster_k, idx, counts, min_dst)
     raise RuntimeError(f"run_light_pdf: no kernel for device {rays.device}")
 
@@ -1035,8 +1071,10 @@ def light_pdf_sum_chunks(
     """The all-hits light pdf (sum / count) at a cost that scales with the
     clusters a tile's rays pierce, not with the light count: the cluster
     AABBs' slab test (B1, one bit per tile), a per-tile worklist of the
-    pierced clusters, and B3 over each worklist.  Exact: a cluster whose
-    box no ray of the tile enters contributes 0 from all its lights.
+    pierced clusters, and B3 over each worklist, which Woop-tests a ray
+    only against the clusters whose box (grown by ``BOX_SLACK``, made once
+    per scene) it enters.  Exact: a cluster whose box a ray does not enter
+    contributes 0 from all its lights to that ray.
 
     Not ported: the TPU's SMEM-budget windows over the item list (the
     ``light_items`` knob, the ``sum0`` chaining and the visited-tile
@@ -1052,8 +1090,8 @@ def light_pdf_sum_chunks(
     ga, ge = _group_stats(m8 != 0, ent, 1)
     idx, counts, _ = _worklist(ga, ge, c)
     total = run_light_pdf(
-        rays, cluster_woop.contiguous(), cluster_k.contiguous(), idx.contiguous(),
-        counts.contiguous(), min_dst,
+        rays, cluster_woop.contiguous(), cluster_k.contiguous(), _grown_once(cluster_min, -1.0),
+        _grown_once(cluster_max, 1.0), idx.contiguous(), counts.contiguous(), min_dst,
     )
     return total / float(max(light_count, 1))
 
